@@ -1,0 +1,90 @@
+"""Weights carried across: Flax variables ↔ the port's torch state_dict.
+
+``state_dict_from_flax`` is the exact inverse of
+``sfd2_tpu/models/convert.py::convert_ressegnet``: Flax HWIO kernels
+become OIHW, ``mean``/``var`` become ``running_mean``/``running_var``, and
+names are the reference checkpoint's torch names (the key table is in
+that module's docstring), so a reference ``.pth`` and a converted Flax
+tree load into ``ResSegNetV2`` the same way. The stem's BN-folded kernel
+weights are derived from this state_dict by
+``sfd2_torch/ops/stem.py::repack_stem_params``.
+"""
+
+from __future__ import annotations
+
+from collections import OrderedDict
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+
+def _conv_weight(kernel) -> torch.Tensor:
+    """HWIO → OIHW (grouped convs share the transpose)."""
+    return torch.from_numpy(np.array(np.transpose(np.asarray(kernel, np.float32), (3, 2, 0, 1)),
+                                     order="C"))
+
+
+def _vec(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, np.float32))
+
+
+def state_dict_from_flax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """{'params', 'batch_stats'} (arrays) of the Flax ResSegNet[V2] → the
+    port's (and the reference's) torch state_dict."""
+    params, stats = variables["params"], variables["batch_stats"]
+    sd: Dict[str, torch.Tensor] = OrderedDict()
+
+    def bn(prefix: str, st, p=None):
+        if p is not None:
+            sd[f"{prefix}.weight"] = _vec(p["scale"])
+            sd[f"{prefix}.bias"] = _vec(p["bias"])
+        sd[f"{prefix}.running_mean"] = _vec(st["mean"])
+        sd[f"{prefix}.running_var"] = _vec(st["var"])
+        sd[f"{prefix}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
+
+    def conv(prefix: str, p, bias: bool = True):
+        sd[f"{prefix}.weight"] = _conv_weight(p["kernel"])
+        if bias:
+            sd[f"{prefix}.bias"] = _vec(p["bias"])
+
+    for stage in (1, 2, 3):
+        a, b, n = f"conv{stage}a", f"conv{stage}b", f"bn{stage}b"
+        conv(f"{a}.0", params[a]["conv"])
+        bn(f"{a}.1", stats[a]["bn"])
+        conv(f"{b}.0", params[b]["conv"])
+        bn(f"{n}.0", stats[n]["bn"])
+    for i in range(3):
+        p, s = params[f"res{i+1}"], stats[f"res{i+1}"]
+        for j in (1, 2, 3):
+            conv(f"conv4.{i}.conv{j}", p[f"conv{j}"], bias=False)
+            bn(f"conv4.{i}.bn{j}", s[f"bn{j}"], p[f"bn{j}"])
+    for head in ("convPa", "convDa"):
+        conv(f"{head}.0", params[head]["conv0"])
+        bn(f"{head}.1", stats[head]["bn"], params[head]["bn"])
+        conv(f"{head}.3", params[head]["conv1"])
+    conv("convPb", params["convPb"])
+    conv("convDb", params["convDb"])
+    if "convSta" in params:
+        conv("ConvSta", params["convSta"])
+    return sd
+
+
+def _strip_prefix(state: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    out: Dict[str, torch.Tensor] = OrderedDict()
+    for k, v in state.items():
+        for pre in ("module.", "model."):
+            if k.startswith(pre):
+                k = k[len(pre):]
+        out[k] = torch.as_tensor(v)
+    return out
+
+
+def load_reference_checkpoint(path) -> Dict[str, torch.Tensor]:
+    """Load a reference checkpoint (.pth, ``ckpt['model']`` or a bare
+    state_dict) with the ``module.``/``model.`` prefixes stripped, ready
+    for ``ResSegNetV2.load_state_dict``."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(ckpt, dict) and "model" in ckpt:
+        ckpt = ckpt["model"]
+    return _strip_prefix(ckpt)

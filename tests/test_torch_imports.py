@@ -1,0 +1,86 @@
+"""The port stands alone: importing every ``sfd2_torch`` module, or
+``chip_smoke.py``, loads nothing of JAX, Flax or the JAX package, builds
+no kernel, and ``chip_smoke.py`` refuses to run without a card."""
+
+import json
+import os
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+import sfd2_torch
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "flax", "sfd2_tpu")
+
+
+def _port_modules():
+    return sorted(m.name for m in pkgutil.walk_packages(sfd2_torch.__path__, "sfd2_torch."))
+
+
+def _run(code):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def test_port_lists_the_slice_modules():
+    mods = set(_port_modules())
+    for name in ("geometry.rotations", "geometry.cameras", "geometry.np_pose",
+                 "models.layers", "models.sfd2", "models.convert", "ops.stem",
+                 "ops.cuda_stem", "ops.nms", "ops.resize", "ops.grid_sample",
+                 "ops.extract", "io.feature_store", "pipeline.extract", "ops.matching",
+                 "ops.cuda_match", "localization.pnp", "localization.ransac",
+                 "sfm.map_index", "localization.engine", "utils.synth", "io.colmap_model"):
+        assert f"sfd2_torch.{name}" in mods, name
+
+
+@pytest.mark.parametrize("target", ["package", "chip_smoke"])
+def test_imports_load_nothing_of_jax(target):
+    mods = _port_modules() if target == "package" else ["chip_smoke"]
+    code = (
+        "import importlib, json, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        f"bad = sorted(k for k in sys.modules if k.split('.')[0] in {FORBIDDEN!r})\n"
+        "print(json.dumps(bad))\n"
+    )
+    assert _run(code) == []
+
+
+def test_import_builds_nothing():
+    code = (
+        "import importlib, json\n"
+        f"for m in {_port_modules()!r}: importlib.import_module(m)\n"
+        "from sfd2_torch.ops import cuda_build\n"
+        "print(json.dumps(sorted(cuda_build._libs)))\n"
+    )
+    assert _run(code) == []  # no kernel library was built or loaded
+
+
+def test_kernel_sources_are_in_the_package():
+    from sfd2_torch.ops import cuda_build
+
+    assert cuda_build.kernel_sources() == ["match", "stem"]
+    for name in cuda_build.kernel_sources():
+        text = (cuda_build.CSRC / f"{name}.cu").read_text()
+        assert "Replaces: sfd2_tpu/ops/pallas_" in text  # header note
+        assert 'extern "C"' in text and "cudaGetLastError" in text
+    assert "arch=compute_90a,code=sm_90a" in cuda_build.NVCC_FLAGS
+
+
+def test_chip_smoke_refuses_without_cuda():
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
