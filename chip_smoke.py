@@ -1,7 +1,6 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA GPU (H100).
 
 Run from the repository root:  python3 chip_smoke.py
-(``--phases build,kernel_stem`` runs a subset; the default runs them all.)
 
 Builds every CUDA kernel of the query path from ``sfd2_torch/csrc``, holds
 each against its plain PyTorch version at the main path's shapes, then
@@ -9,11 +8,14 @@ drives the main path — ``Extractor`` on four 1024² images with the
 full-width ResSegNetV2 (random weights from a seed), and
 ``LocalizationEngine.localize`` on the synthetic corridor scene at the
 production query shapes (4096 keypoints, 50 retrieved frames, C=128) —
-with every kernel's launch count set to 0 just before and read just
-after. Each phase prints one JSON line; any failed check raises and the
-script exits non-zero without a result. The last three lines are the
-kernel table (JSON), the card's name and power limit as nvidia-smi gives
-them, and ``{"ok": true, "device": {...}}``.
+with every kernel's launch count and launch-shape record set to 0 just
+before each path and read just after. A shape the main path launched
+that the kernel phases did not compare is compared afterwards, so every
+launch shape is held against the plain version. Each phase prints one
+JSON line; any failed check raises and the script exits non-zero without
+a result. The last three lines are the kernel table (JSON), the card's
+name and power limit as nvidia-smi gives them, and
+``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package. Exits non-zero when CUDA is
 not available.
@@ -21,7 +23,7 @@ not available.
 
 from __future__ import annotations
 
-import argparse
+import collections
 import json
 import subprocess
 import sys
@@ -43,7 +45,6 @@ from sfd2_torch.ops.stem import fused_stem_apply, repack_stem_params, unpack_ste
 from sfd2_torch.pipeline.extract import EXTRACTION_CONFS, ExtractionConfig, Extractor
 from sfd2_torch.utils.synth import build_corridor_scene
 
-PHASES = ("build", "kernel_stem", "kernel_match", "extract", "localize")
 # H100 SXM peaks (NVIDIA data sheet, 700 W): f32 outside the tensor cores
 # and HBM bandwidth. The bound of a kernel is the larger of its operations
 # over the first and its bytes over the second.
@@ -108,6 +109,12 @@ def random_model_state(seed: int):
 def reset_launches():
     for k in KERNELS.values():
         k["wrapper"].launches = 0
+        k["wrapper"].shapes.clear()
+
+
+def read_launches() -> dict:
+    """{kernel: Counter of launch shapes} since the last reset_launches()."""
+    return {name: collections.Counter(k["wrapper"].shapes) for name, k in KERNELS.items()}
 
 
 def phase_build(results):
@@ -121,18 +128,20 @@ def phase_build(results):
          sources=cuda_build.kernel_sources(), ptxas=ptxas)
 
 
-def phase_kernel_stem(results, state):
-    dev = torch.device("cuda")
-    packed = repack_stem_params(state)
-    weights = StemWeights(packed, dev)
-    w1, b1, w2, b2 = (t.to(dev) for t in unpack_stem_params(packed))
-    w1c, w2c = w1.permute(3, 2, 0, 1).contiguous(), w2.permute(3, 2, 0, 1).contiguous()
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    rows = []
-    # (4, 1024, 1024) is the launch of the extract phase; 1216×1600 is one
-    # bucket of the Aachen r1600 configuration.
-    for b, h, w in ((4, 1024, 1024), (1, 1216, 1600)):
-        x = torch.randn((b, h, w, 3), generator=gen, device=dev)
+class StemCase:
+    """K1 against its plain version at one input shape, on the card."""
+
+    def __init__(self, state):
+        dev = torch.device("cuda")
+        self.weights = StemWeights(repack_stem_params(state), dev)
+        w1, self.b1, w2, self.b2 = (t.to(dev) for t in unpack_stem_params(self.weights.packed))
+        self.w1c = w1.permute(3, 2, 0, 1).contiguous()
+        self.w2c = w2.permute(3, 2, 0, 1).contiguous()
+
+    def __call__(self, b: int, h: int, w: int) -> dict:
+        weights = self.weights
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        x = torch.randn((b, h, w, 3), generator=gen, device="cuda")
         ref = fused_stem_apply(x, weights.packed, torch.float32)
         got = fused_stem_cuda(x, weights, torch.float32)
         torch.cuda.synchronize()
@@ -145,8 +154,8 @@ def phase_kernel_stem(results, state):
         xc = x.permute(0, 3, 1, 2).contiguous()
 
         def library():
-            a = torch.relu(torch.nn.functional.conv2d(xc, w1c, b1, padding=1))
-            return torch.relu(torch.nn.functional.conv2d(a, w2c, b2, stride=2, padding=1))
+            a = torch.relu(torch.nn.functional.conv2d(xc, self.w1c, self.b1, padding=1))
+            return torch.relu(torch.nn.functional.conv2d(a, self.w2c, self.b2, stride=2, padding=1))
 
         flops = b * (2 * 27 * 64 * h * w + 2 * 576 * 64 * (h // 2) * (w // 2))
         nbytes = b * (h * w * 3 * 4 + (h // 2) * (w // 2) * 64 * 2)  # bf16 out
@@ -159,29 +168,39 @@ def phase_kernel_stem(results, state):
             library_ms=cuda_ms(library), gflop=flops / 1e9, mbytes=nbytes / 1e6,
             bound_ms=bound_ms, bound_by=bound_by)
         emit("kernel_stem", **row)
-        rows.append(row)
-        del x, ref, got, got16, xc
-    results["fused_stem"] = rows[0]
+        return row
+
+
+def phase_kernel_stem(results, state):
+    case = StemCase(state)
+    # (4, 1024, 1024) is the launch of the extract phase; 1216×1600 is one
+    # bucket of the Aachen r1600 configuration.
+    results["fused_stem"] = {(b, h, w): case(b, h, w) for b, h, w in ((4, 1024, 1024),
+                                                                       (1, 1216, 1600))}
+    return case
 
 
 def unit(t):
     return t / t.norm(dim=-1, keepdim=True)
 
 
-def phase_kernel_match(results):
+def match_case(b: int, n1: int, n2: int, c: int) -> dict:
+    """K2 against its plain version at [B, N1, C] × [B, N2, C], f32 and
+    bf16, with about 10 % invalid rows and columns; the query is broadcast
+    to every bank with batch stride 0, as the engine does."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
-    b, n, c = 64, 4096, 128
-    q = unit(torch.randn((n, c), generator=gen, device=dev))
+    q = unit(torch.randn((n1, c), generator=gen, device=dev))
     # Banks: half of each bank's rows are noisy copies of query rows, so real
     # mutual matches exist; the rest are unrelated.
-    perm = torch.argsort(torch.rand((b, n), generator=gen, device=dev), dim=1)
-    bank = torch.randn((b, n, c), generator=gen, device=dev)
-    bank[:, : n // 2] = q[perm[:, : n // 2]] + 0.3 * unit(bank[:, : n // 2])
+    k = min(n1, n2) // 2
+    src = torch.argsort(torch.rand((b, n1), generator=gen, device=dev), dim=1)[:, :k]
+    bank = torch.randn((b, n2, c), generator=gen, device=dev)
+    bank[:, :k] = q[src] + 0.3 * unit(bank[:, :k])
     bank = unit(bank)
-    d0 = q[None].expand(b, n, c)  # the engine's stride-0 query broadcast
-    v0 = (torch.rand((1, n), generator=gen, device=dev) > 0.1).expand(b, n)
-    v1 = torch.rand((b, n), generator=gen, device=dev) > 0.1
+    d0 = q[None].expand(b, n1, c)
+    v0 = (torch.rand((1, n1), generator=gen, device=dev) > 0.1).expand(b, n1)
+    v1 = torch.rand((b, n2), generator=gen, device=dev) > 0.1
 
     def check(dtype):
         a0, a1 = d0.to(dtype), bank.to(dtype)
@@ -191,38 +210,26 @@ def phase_kernel_match(results):
         agree = (m_k == m_p).float().mean().item()
         alive = s_p != 0
         err = (s_k - s_p)[alive].abs().max().item()
-        require(agree >= 0.999, f"K2 {dtype}: matches agree on {agree:.5f} < 0.999 of rows")
-        require(err <= 1e-5, f"K2 {dtype}: score err {err} > 1e-5")
-        require(bool((s_k[~alive] == 0).all()), f"K2 {dtype}: dead rows must score 0")
+        what = f"K2 {dtype} at {[b, n1, n2, c]}"
+        require(agree >= 0.999, f"{what}: matches agree on {agree:.5f} < 0.999 of rows")
+        require(err <= 1e-5, f"{what}: score err {err} > 1e-5")
+        require(bool((s_k[~alive] == 0).all()), f"{what}: dead rows must score 0")
         return agree, err, int((m_k >= 0).sum().item())
 
     agree, err, n_match = check(torch.float32)
     agree16, err16, _ = check(torch.bfloat16)
-
-    # Exact ties: duplicated query rows 3 and 5 whose common best column in
-    # bank 0 is 7 must both be granted the match (max-equality contract).
-    qt = q.clone()
-    qt[5] = qt[3]
-    bt = bank[:2].clone()
-    bt[0, 7] = qt[3]
-    ones0, ones1 = torch.ones((2, n), dtype=torch.bool, device=dev), torch.ones(
-        (2, n), dtype=torch.bool, device=dev)
-    m_t, _ = mutual_nn_match_cuda(qt[None].expand(2, n, c), bt, ones0, ones1)
-    m_tp, _ = mutual_nn_match(qt[None].expand(2, n, c), bt, ones0, ones1)
-    require(m_t[0, 3].item() == 7 and m_t[0, 5].item() == 7, "K2: tie not granted to both rows")
-    require(bool((m_t == m_tp).all()), "K2: tie case disagrees with the plain version")
 
     def library():
         s = torch.bmm(d0, bank.transpose(1, 2))
         rmax, nn12 = s.max(-1)
         return rmax == torch.gather(s.amax(-2), -1, nn12)
 
-    flops = 2 * b * n * n * c
-    nbytes = q.numel() * 4 + bank.numel() * 4 + v0.shape[1] + v1.numel() + b * n * 8
+    flops = 2 * b * n1 * n2 * c
+    nbytes = q.numel() * 4 + bank.numel() * 4 + n1 + v1.numel() + b * n1 * 8
     bound_ms, bound_by = bound(flops, nbytes)
     row = dict(
-        shape=[b, n, n, c], agree=agree, max_abs_err=err, bf16_agree=agree16,
-        bf16_max_abs_err=err16, matches=n_match, tie_check=True,
+        shape=[b, n1, n2, c], agree=agree, max_abs_err=err, bf16_agree=agree16,
+        bf16_max_abs_err=err16, matches=n_match,
         ms=cuda_ms(lambda: mutual_nn_match_cuda(d0, bank, v0, v1)),
         bf16_ms=cuda_ms(lambda: mutual_nn_match_cuda(
             d0.to(torch.bfloat16), bank.to(torch.bfloat16), v0, v1)),
@@ -230,7 +237,33 @@ def phase_kernel_match(results):
         library_ms=cuda_ms(library), gflop=flops / 1e9, mbytes=nbytes / 1e6,
         bound_ms=bound_ms, bound_by=bound_by)
     emit("kernel_match", **row)
-    results["mutual_nn_match"] = row
+    return row
+
+
+def tie_check(n: int = 4096, c: int = 128):
+    """Exact ties: duplicated query rows 3 and 5 whose common best column in
+    bank 0 is 7 must both be granted the match (max-equality contract)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    q = unit(torch.randn((n, c), generator=gen, device=dev))
+    q[5] = q[3]
+    bank = unit(torch.randn((2, n, c), generator=gen, device=dev))
+    bank[0, 7] = q[3]
+    ones = torch.ones((2, n), dtype=torch.bool, device=dev)
+    m_t, _ = mutual_nn_match_cuda(q[None].expand(2, n, c), bank, ones, ones)
+    m_tp, _ = mutual_nn_match(q[None].expand(2, n, c), bank, ones, ones)
+    require(m_t[0, 3].item() == 7 and m_t[0, 5].item() == 7, "K2: tie not granted to both rows")
+    require(bool((m_t == m_tp).all()), "K2: tie case disagrees with the plain version")
+    emit("kernel_match_tie", granted=[m_t[0, 3].item(), m_t[0, 5].item()])
+
+
+def phase_kernel_match(results):
+    # The engine matches the first cluster alone ([1, 4096, 128]), then the
+    # remaining candidates or the covisible frames in one bucketed launch
+    # (50 frames padded to [64, 4096, 128]).
+    results["mutual_nn_match"] = {s: match_case(*s) for s in ((64, 4096, 4096, 128),
+                                                             (1, 4096, 4096, 128))}
+    tie_check()
 
 
 def textured_images(n: int, size: int, seed: int):
@@ -274,7 +307,7 @@ def phase_extract(results, state):
         t0 = time.perf_counter()
         feats = ex.extract_batch(images)
         times.append((time.perf_counter() - t0) * 1e3 / len(images))
-    results["extract_launches"] = {"fused_stem": fused_stem_cuda.launches}
+    results["main_path"].append(read_launches())
     n_kp = [int(len(f.keypoints)) for f in feats]
     for f in feats:
         require(np.isfinite(f.keypoints).all() and np.isfinite(f.descriptors).all(),
@@ -285,6 +318,7 @@ def phase_extract(results, state):
     emit("extract", images=[4, 1024, 1024, 3], keypoints_per_image=n_kp,
          ms_per_img=float(np.median(times)), ms_per_img_runs=times,
          stem_launches=fused_stem_cuda.launches,
+         stem_shapes=[[*k, v] for k, v in fused_stem_cuda.shapes.items()],
          cpu_check=dict(keypoints=len(kc), agree=frac, desc_max_abs_err=float(derr)))
     emit("extract_profile", **device_profile(lambda: ex.extract_batch(images)))
 
@@ -312,11 +346,12 @@ def phase_localize(results):
     t_err = np.array([e[1] for e in errs])
     r1 = float(np.mean((t_err < 0.25) & (q_err < 2.0)))
     r2 = float(np.mean((t_err < 0.5) & (q_err < 5.0)))
-    results["localize_launches"] = {"mutual_nn_match": mutual_nn_match_cuda.launches}
+    results["main_path"].append(read_launches())
     emit("localize", scene_build_s=build_s, e2e_query_ms=float(np.median(per_q)) * 1e3,
          per_query_ms=[x * 1e3 for x in per_q], recall_025m_2deg=r1, recall_05m_5deg=r2,
          med_terr_m=float(np.median(t_err)), med_rerr_deg=float(np.median(q_err)),
-         sources=sources, match_launches=mutual_nn_match_cuda.launches)
+         sources=sources, match_launches=mutual_nn_match_cuda.launches,
+         match_shapes=[[*k, v] for k, v in mutual_nn_match_cuda.shapes.items()])
     require(r1 >= 0.875, f"localize: recall@(0.25m, 2deg) {r1} < 0.875")
     require(mutual_nn_match_cuda.launches > 0, "localize: the matcher kernel was not launched")
     profile_query(eng, scene)
@@ -371,12 +406,28 @@ def profile_query(eng, scene):
          top_port_functions_cum=[[k, round(ms, 3), n] for k, ms, n in funcs[:12]])
 
 
+def kernel_table(results, shapes: dict) -> list:
+    """One row per kernel: launches on the main path, and the numbers of
+    its first compared shape (the largest main-path launch), with every
+    compared shape and its main-path launches under ``shapes``."""
+    table = []
+    for name, k in KERNELS.items():
+        rows = results[name]
+        per_shape = [dict(launches=shapes[name].get(key, 0), **row) for key, row in rows.items()]
+        first = per_shape[0]
+        table.append(dict(
+            name=name, route=k["route"], source=k["source"], replaces=k["replaces"],
+            launches=sum(shapes[name].values()),
+            max_abs_err=max(r["max_abs_err"] for r in per_shape), ms=first["ms"],
+            plain_ms=first["plain_ms"], bound_ms=first["bound_ms"], bound_by=first["bound_by"],
+            library_ms=first["library_ms"],
+            shapes=[{f: r[f] for f in ("shape", "launches", "max_abs_err", "ms", "plain_ms",
+                                       "bound_ms", "bound_by", "library_ms")}
+                    for r in per_shape]))
+    return table
+
+
 def main():
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default=",".join(PHASES),
-                    help="comma-separated subset of " + ",".join(PHASES))
-    args = ap.parse_args()
-    phases = args.phases.split(",")
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         sys.exit(2)
@@ -388,34 +439,28 @@ def main():
     emit("device", name=torch.cuda.get_device_name(0), count=torch.cuda.device_count(),
          nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda)
 
-    results = {}
+    results = {"main_path": []}
     state = random_model_state(SEED)
     t_start = time.perf_counter()
-    if "build" in phases:
-        phase_build(results)
-    if "kernel_stem" in phases:
-        phase_kernel_stem(results, state)
-    if "kernel_match" in phases:
-        phase_kernel_match(results)
-    reset_launches()  # the main path starts here: extract, then localize
-    if "extract" in phases:
-        phase_extract(results, state)
-    if "localize" in phases:
-        phase_localize(results)
+    phase_build(results)
+    stem_case = phase_kernel_stem(results, state)
+    phase_kernel_match(results)
+    # The main path: extract, then localize, each with the counts set to 0
+    # just before it and read just after.
+    phase_extract(results, state)
+    phase_localize(results)
 
-    launches = {**results.get("extract_launches", {}), **results.get("localize_launches", {})}
-    table = []
-    for name, k in KERNELS.items():
-        r = results.get(name, {})
-        table.append(dict(name=name, route=k["route"], source=k["source"],
-                          replaces=k["replaces"], launches=launches.get(name, 0),
-                          max_abs_err=r.get("max_abs_err"), ms=r.get("ms"),
-                          plain_ms=r.get("plain_ms"), bound_ms=r.get("bound_ms"),
-                          bound_by=r.get("bound_by"), library_ms=r.get("library_ms"),
-                          ok=name in results))
-    if "extract" in phases and "localize" in phases:
-        for row in table:
-            require(row["launches"] > 0, f"{row['name']}: not launched on the main path")
+    shapes = {name: sum((run[name] for run in results["main_path"]), collections.Counter())
+              for name in KERNELS}
+    for name in KERNELS:
+        require(sum(shapes[name].values()) > 0, f"{name}: not launched on the main path")
+    # Every shape the main path launched is held against the plain version.
+    cases = {"fused_stem": stem_case, "mutual_nn_match": match_case}
+    for name, counts in shapes.items():
+        for key in counts:
+            if key not in results[name]:
+                results[name][key] = cases[name](*key)
+    table = kernel_table(results, shapes)
     emit("summary", seconds=round(time.perf_counter() - t_start, 1))
     print(json.dumps({"kernels": table}), flush=True)
     print(smi, flush=True)

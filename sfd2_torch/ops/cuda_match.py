@@ -15,6 +15,7 @@ launches the kernel or raises.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -91,7 +92,9 @@ def mutual_nn_match_cuda(desc0: torch.Tensor, desc1: torch.Tensor,
             matches.data_ptr(), scores.data_ptr(), stream)
     cuda_build.check(lib, code, "mutual_nn_match_cuda")
     mutual_nn_match_cuda.launches += 1
+    mutual_nn_match_cuda.shapes[(b, n1, n2, c)] += 1
     return matches, scores
 
 
 mutual_nn_match_cuda.launches = 0
+mutual_nn_match_cuda.shapes = collections.Counter()  # (b, n1, n2, c) of each launch

@@ -15,6 +15,7 @@ launches the kernel or raises.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -77,7 +78,9 @@ def fused_stem_cuda(x: torch.Tensor, weights: StemWeights,
             b, h, w, int(out_dtype == torch.bfloat16), stream)
     cuda_build.check(lib, code, "fused_stem_cuda")
     fused_stem_cuda.launches += 1
+    fused_stem_cuda.shapes[(b, h, w)] += 1
     return out
 
 
 fused_stem_cuda.launches = 0
+fused_stem_cuda.shapes = collections.Counter()  # (b, h, w) of each launch
