@@ -2,20 +2,26 @@
 
 Run from the repository root:  python3 chip_smoke.py
 
-Builds every CUDA kernel of the query path from ``sfd2_torch/csrc``, holds
-each against its plain PyTorch version at the main path's shapes, then
-drives the main path — ``Extractor`` on four 1024² images with the
-full-width ResSegNetV2 (random weights from a seed), and
-``LocalizationEngine.localize`` on the synthetic corridor scene at the
-production query shapes (4096 keypoints, 50 retrieved frames, C=128) —
-with every kernel's launch count and launch-shape record set to 0 just
-before each path and read just after. A shape the main path launched
-that the kernel phases did not compare is compared afterwards, so every
-launch shape is held against the plain version. Each phase prints one
-JSON line; any failed check raises and the script exits non-zero without
-a result. The last three lines are the kernel table (JSON), the card's
-name and power limit as nvidia-smi gives them, and
-``{"ok": true, "device": {...}}``.
+Builds every CUDA kernel from ``sfd2_torch/csrc`` (K1 fused stem, K2
+mutual-NN matcher, K3 row gather, K4 mutual-NN + ratio matcher), holds
+each against its plain PyTorch version at the main paths' shapes, then
+drives the main paths:
+- the query path: ``Extractor`` on four 1024² images with the full-width
+  ResSegNetV2 (random weights from a seed), and
+  ``LocalizationEngine.localize`` on the synthetic corridor scene at the
+  production query shapes (4096 keypoints, 50 retrieved frames, C=128);
+- map building on the same scene (60 DB images, 4096 keypoints, C=128):
+  covisibility pairs → ``match_pairs`` (K2) → ``triangulate_map``
+  (F-RANSAC, tracks, triangulation) → a map bundle adjustment (K3);
+- ``incremental_reconstruction`` from scratch on its first 12 images,
+  matched with the NNR preset (K4), with bundle adjustment (K3).
+Every kernel's launch count and launch-shape record is set to 0 just
+before each path and read just after. A shape a main path launched that
+the kernel phases did not compare is compared afterwards, so every launch
+shape is held against the plain version. Each phase prints one JSON line;
+any failed check raises and the script exits non-zero without a result.
+The last three lines are the kernel table (JSON), the card's name and
+power limit as nvidia-smi gives them, and ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package. Exits non-zero when CUDA is
 not available.
@@ -27,22 +33,35 @@ import collections
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 import numpy as np
 import torch
 
-from sfd2_torch.geometry.np_pose import pose_error
-from sfd2_torch.io.feature_store import FeatureStore
+from sfd2_torch.geometry.cameras import Camera, canonicalize_params
+from sfd2_torch.geometry.np_pose import camera_center, pose_error
+from sfd2_torch.io.colmap_model import Image, read_model, write_model
+from sfd2_torch.io.feature_store import FeatureStore, MatchStore
 from sfd2_torch.localization.engine import LocalizationEngine, LocalizerConfig
 from sfd2_torch.models.sfd2 import ResSegNetV2
 from sfd2_torch.ops import cuda_build
+from sfd2_torch.ops.cuda_gather import gather_rows_cuda
 from sfd2_torch.ops.cuda_match import mutual_nn_match_cuda
+from sfd2_torch.ops.cuda_match_ratio import mutual_nn_ratio_match_cuda
 from sfd2_torch.ops.cuda_stem import StemWeights, fused_stem_cuda
-from sfd2_torch.ops.matching import mutual_nn_match
+from sfd2_torch.ops.gather import gather_rows_plain
+from sfd2_torch.ops.matching import mutual_nn_match, mutual_nn_ratio_match
 from sfd2_torch.ops.stem import fused_stem_apply, repack_stem_params, unpack_stem_params
 from sfd2_torch.pipeline.extract import EXTRACTION_CONFS, ExtractionConfig, Extractor
+from sfd2_torch.pipeline.match import MatchConfig, match_pairs
+from sfd2_torch.sfm import pipeline as sfm_pipeline
+from sfd2_torch.sfm import reconstruction as sfm_reconstruction
+from sfd2_torch.sfm.ba import BAProblem, bundle_adjust
+from sfd2_torch.sfm.pairs import pairs_from_covisibility
+from sfd2_torch.sfm.pipeline import TriangulationConfig, triangulate_map
+from sfd2_torch.sfm.reconstruction import ReconstructionConfig, incremental_reconstruction
 from sfd2_torch.utils.synth import build_corridor_scene
 
 # H100 SXM peaks (NVIDIA data sheet, 700 W): f32 outside the tensor cores
@@ -58,6 +77,11 @@ KERNELS = {
     "mutual_nn_match": dict(route="cuda", source="sfd2_torch/csrc/match.cu",
                             replaces="sfd2_tpu/ops/pallas_match.py:358",
                             wrapper=mutual_nn_match_cuda),
+    "gather_rows": dict(route="cuda", source="sfd2_torch/csrc/gather.cu",
+                        replaces="sfd2_tpu/ops/pallas_gather.py:114", wrapper=gather_rows_cuda),
+    "mutual_nn_ratio_match": dict(route="cuda", source="sfd2_torch/csrc/match_ratio.cu",
+                                  replaces="sfd2_tpu/ops/pallas_match.py:647",
+                                  wrapper=mutual_nn_ratio_match_cuda),
 }
 
 
@@ -85,6 +109,26 @@ def cuda_ms(fn, warmup: int = 3, iters: int = 10) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def device_ms_per_call(fn, iters: int = 20) -> float | None:
+    """Device time of one call of fn: the summed time of the kernels that
+    `iters` calls launched, from a torch.profiler trace, over `iters` —
+    the kernels alone, without the host's dispatch that CUDA events
+    around a microsecond-scale call also measure. None if the trace holds
+    no kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA)
+    return total / 1e3 / iters if total else None
 
 
 def bound(flops: float, nbytes: float):
@@ -184,40 +228,58 @@ def unit(t):
     return t / t.norm(dim=-1, keepdim=True)
 
 
-def match_case(b: int, n1: int, n2: int, c: int) -> dict:
-    """K2 against its plain version at [B, N1, C] × [B, N2, C], f32 and
-    bf16, with about 10 % invalid rows and columns; the query is broadcast
-    to every bank with batch stride 0, as the engine does."""
+def pair_case(b: int, n1: int, n2: int, c: int, broadcast: bool, seed: int):
+    """Matcher inputs [B, N1, C] × [B, N2, C] with about 10 % invalid rows
+    and columns. broadcast: one query shared by every bank with batch
+    stride 0, as the engine matches a query against its DB banks; else a
+    distinct query bank per pair, as DB-pair matching does. Half of each
+    bank's rows are noisy copies of its query's rows, so real mutual
+    matches exist; the rest are unrelated."""
     dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
-    q = unit(torch.randn((n1, c), generator=gen, device=dev))
-    # Banks: half of each bank's rows are noisy copies of query rows, so real
-    # mutual matches exist; the rest are unrelated.
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    if broadcast:
+        d0 = unit(torch.randn((n1, c), generator=gen, device=dev))[None].expand(b, n1, c)
+        v0 = (torch.rand((1, n1), generator=gen, device=dev) > 0.1).expand(b, n1)
+    else:
+        d0 = unit(torch.randn((b, n1, c), generator=gen, device=dev))
+        v0 = torch.rand((b, n1), generator=gen, device=dev) > 0.1
     k = min(n1, n2) // 2
     src = torch.argsort(torch.rand((b, n1), generator=gen, device=dev), dim=1)[:, :k]
     bank = torch.randn((b, n2, c), generator=gen, device=dev)
-    bank[:, :k] = q[src] + 0.3 * unit(bank[:, :k])
+    bank[:, :k] = d0[torch.arange(b, device=dev)[:, None], src] + 0.3 * unit(bank[:, :k])
     bank = unit(bank)
-    d0 = q[None].expand(b, n1, c)
-    v0 = (torch.rand((1, n1), generator=gen, device=dev) > 0.1).expand(b, n1)
     v1 = torch.rand((b, n2), generator=gen, device=dev) > 0.1
+    nbytes = (d0[0] if broadcast else d0).numel() * 4 + bank.numel() * 4 \
+        + (v0[0] if broadcast else v0).numel() + v1.numel() + b * n1 * 8
+    return d0, bank, v0, v1, nbytes
 
-    def check(dtype):
+
+def check_matcher(kernel, plain, d0, bank, v0, v1, what: str):
+    """Kernel vs plain version in f32 and bf16: ≥ 99.9 % identical matches
+    (only near-ties may flip: the plain similarity is a cuBLAS product
+    summed in another order), scores within 1e-5, dead rows scoring 0."""
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
         a0, a1 = d0.to(dtype), bank.to(dtype)
-        m_k, s_k = mutual_nn_match_cuda(a0, a1, v0, v1)
-        m_p, s_p = mutual_nn_match(a0, a1, v0, v1)
+        m_k, s_k = kernel(a0, a1, v0, v1)
+        m_p, s_p = plain(a0, a1, v0, v1)
         torch.cuda.synchronize()
         agree = (m_k == m_p).float().mean().item()
         alive = s_p != 0
         err = (s_k - s_p)[alive].abs().max().item()
-        what = f"K2 {dtype} at {[b, n1, n2, c]}"
-        require(agree >= 0.999, f"{what}: matches agree on {agree:.5f} < 0.999 of rows")
-        require(err <= 1e-5, f"{what}: score err {err} > 1e-5")
-        require(bool((s_k[~alive] == 0).all()), f"{what}: dead rows must score 0")
-        return agree, err, int((m_k >= 0).sum().item())
+        tag = f"{what} {dtype}"
+        require(agree >= 0.999, f"{tag}: matches agree on {agree:.5f} < 0.999 of rows")
+        require(err <= 1e-5, f"{tag}: score err {err} > 1e-5")
+        require(bool((s_k[~alive] == 0).all()), f"{tag}: dead rows must score 0")
+        out[dtype] = (agree, err, int((m_k >= 0).sum().item()))
+    return out
 
-    agree, err, n_match = check(torch.float32)
-    agree16, err16, _ = check(torch.bfloat16)
+
+def match_case(b: int, n1: int, n2: int, c: int, broadcast: bool) -> dict:
+    """K2 against its plain version at one launch shape and layout."""
+    d0, bank, v0, v1, nbytes = pair_case(b, n1, n2, c, broadcast, SEED + 1)
+    res = check_matcher(mutual_nn_match_cuda, mutual_nn_match, d0, bank, v0, v1,
+                        f"K2 at {[b, n1, n2, c, broadcast]}")
 
     def library():
         s = torch.bmm(d0, bank.transpose(1, 2))
@@ -225,11 +287,11 @@ def match_case(b: int, n1: int, n2: int, c: int) -> dict:
         return rmax == torch.gather(s.amax(-2), -1, nn12)
 
     flops = 2 * b * n1 * n2 * c
-    nbytes = q.numel() * 4 + bank.numel() * 4 + n1 + v1.numel() + b * n1 * 8
     bound_ms, bound_by = bound(flops, nbytes)
+    (agree, err, n_match), (agree16, err16, _) = res[torch.float32], res[torch.bfloat16]
     row = dict(
-        shape=[b, n1, n2, c], agree=agree, max_abs_err=err, bf16_agree=agree16,
-        bf16_max_abs_err=err16, matches=n_match,
+        shape=[b, n1, n2, c], broadcast=broadcast, agree=agree, max_abs_err=err,
+        bf16_agree=agree16, bf16_max_abs_err=err16, matches=n_match,
         ms=cuda_ms(lambda: mutual_nn_match_cuda(d0, bank, v0, v1)),
         bf16_ms=cuda_ms(lambda: mutual_nn_match_cuda(
             d0.to(torch.bfloat16), bank.to(torch.bfloat16), v0, v1)),
@@ -260,10 +322,116 @@ def tie_check(n: int = 4096, c: int = 128):
 def phase_kernel_match(results):
     # The engine matches the first cluster alone ([1, 4096, 128]), then the
     # remaining candidates or the covisible frames in one bucketed launch
-    # (50 frames padded to [64, 4096, 128]).
-    results["mutual_nn_match"] = {s: match_case(*s) for s in ((64, 4096, 4096, 128),
-                                                             (1, 4096, 4096, 128))}
+    # (50 frames padded to [64, 4096, 128]), the query broadcast to every
+    # bank; map building matches DB pairs in batches of 16 distinct banks.
+    # With one bank the two layouts coincide; the wrapper records B=1 as
+    # not broadcast.
+    results["mutual_nn_match"] = {(*s, bc): match_case(*s, bc) for s, bc in (
+        ((64, 4096, 4096, 128), True), ((1, 4096, 4096, 128), False),
+        ((16, 4096, 4096, 128), False))}
     tie_check()
+
+
+RATIO = 0.9  # the NNR preset (pipeline/match.py MATCHER_CONFS)
+
+
+def ratio_case(b: int, n1: int, n2: int, c: int, broadcast: bool) -> dict:
+    """K4 against its plain version at one launch shape and layout."""
+    d0, bank, v0, v1, nbytes = pair_case(b, n1, n2, c, broadcast, SEED + 5)
+    kernel = lambda a0, a1, x, y: mutual_nn_ratio_match_cuda(a0, a1, RATIO, x, y)  # noqa: E731
+    plain = lambda a0, a1, x, y: mutual_nn_ratio_match(a0, a1, RATIO, x, y)  # noqa: E731
+    res = check_matcher(kernel, plain, d0, bank, v0, v1, f"K4 at {[b, n1, n2, c, broadcast]}")
+
+    def library():  # the product, the top-2 both ways, the column values at nn12
+        s = torch.bmm(d0, bank.transpose(1, 2))
+        v12, nn12 = s.topk(2, dim=-1)
+        v21, _ = s.topk(2, dim=-2)
+        return v12, torch.gather(v21[:, 0], -1, nn12[..., 0]), torch.gather(v21[:, 1], -1, nn12[..., 0])
+
+    flops = 2 * b * n1 * n2 * c
+    bound_ms, bound_by = bound(flops, nbytes)
+    (agree, err, n_match), (agree16, err16, _) = res[torch.float32], res[torch.bfloat16]
+    row = dict(
+        shape=[b, n1, n2, c], broadcast=broadcast, ratio=RATIO, agree=agree, max_abs_err=err,
+        bf16_agree=agree16, bf16_max_abs_err=err16, matches=n_match,
+        ms=cuda_ms(lambda: kernel(d0, bank, v0, v1)),
+        bf16_ms=cuda_ms(lambda: kernel(d0.to(torch.bfloat16), bank.to(torch.bfloat16), v0, v1)),
+        plain_ms=cuda_ms(lambda: plain(d0, bank, v0, v1)),
+        library_ms=cuda_ms(library), gflop=flops / 1e9, mbytes=nbytes / 1e6,
+        bound_ms=bound_ms, bound_by=bound_by)
+    emit("kernel_match_ratio", **row)
+    return row
+
+
+def ratio_tie_check(n: int = 4096, c: int = 128):
+    """A column max tied by two rows: query rows 3 and 5 identical, bank 0's
+    column 7 a noisy copy of them. The column's multiset top-2 is (s, s),
+    its distance ratio ≈ 1 > 0.9, so neither row is matched; with row 5
+    changed, row 3 is matched to 7."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    q = unit(torch.randn((n, c), generator=gen, device=dev))
+    bank = unit(torch.randn((2, n, c), generator=gen, device=dev))
+    bank[0, 7] = unit(q[3] + 0.1 * unit(torch.randn((c,), generator=gen, device=dev)))
+    ones = torch.ones((2, n), dtype=torch.bool, device=dev)
+    untied, _ = mutual_nn_ratio_match_cuda(q[None].expand(2, n, c), bank, RATIO, ones, ones)
+    q[5] = q[3]
+    m_t, _ = mutual_nn_ratio_match_cuda(q[None].expand(2, n, c), bank, RATIO, ones, ones)
+    m_p, _ = mutual_nn_ratio_match(q[None].expand(2, n, c), bank, RATIO, ones, ones)
+    require(untied[0, 3].item() == 7, "K4: the untied row lost its match")
+    require(m_t[0, 3].item() == -1 and m_t[0, 5].item() == -1,
+            "K4: a tied column max must give c2 == c1 and fail the ratio test")
+    require(bool((m_t == m_p).all()), "K4: tie case disagrees with the plain version")
+    emit("kernel_match_ratio_tie", untied=untied[0, 3].item(),
+         tied=[m_t[0, 3].item(), m_t[0, 5].item()])
+
+
+def phase_kernel_match_ratio(results):
+    # DB-pair matching with the NNR preset: batches of 16 distinct banks.
+    results["mutual_nn_ratio_match"] = {
+        (16, 4096, 4096, 128, False): ratio_case(16, 4096, 4096, 128, False)}
+    ratio_tie_check()
+
+
+def gather_case(n: int, m: int, c: int, sorted_idx: bool = False) -> dict:
+    """K3 against its plain version: table [N, C], idx [M] (random, or
+    sorted as BA's point gathers are); a gather does no arithmetic, so the
+    result must be exact."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    table = torch.randn((n, c), generator=gen, device=dev)
+    idx = torch.randint(0, n, (m,), generator=gen, device=dev, dtype=torch.int32)
+    if sorted_idx:
+        idx = torch.sort(idx).values
+    got = gather_rows_cuda(table, idx)
+    ref = gather_rows_plain(table, idx)
+    torch.cuda.synchronize()
+    err = (got - ref).abs().max().item() if m else 0.0
+    require(err == 0.0 and bool(torch.equal(got, ref)), f"K3 at {[n, m, c, sorted_idx]}: err {err}")
+    nbytes = (n * c + m + m * c) * 4
+    bound_ms, bound_by = bound(0, nbytes)
+    # ms: CUDA events around one call, host dispatch included (a
+    # microsecond kernel waits on it); *_device_ms: the kernels alone, from
+    # a profiler trace (null where the trace held no kernel event).
+    row = dict(shape=[n, m, c], sorted_idx=sorted_idx, max_abs_err=err,
+               ms=cuda_ms(lambda: gather_rows_cuda(table, idx)),
+               plain_ms=cuda_ms(lambda: gather_rows_plain(table, idx)),
+               library_ms=cuda_ms(lambda: table.index_select(0, idx)),
+               kernel_device_ms=device_ms_per_call(lambda: gather_rows_cuda(table, idx)),
+               library_device_ms=device_ms_per_call(lambda: table.index_select(0, idx)),
+               mbytes=nbytes / 1e6, bound_ms=bound_ms, bound_by=bound_by)
+    emit("kernel_gather", **row)
+    return row
+
+
+def phase_kernel_gather(results):
+    # Bundle adjustment's gathers at map scale (~1.4e5 observations of 60
+    # cameras and 14000 points): rotations (C=9), translations and point
+    # updates (3), intrinsics (8), the fixed-camera mask (1), camera updates
+    # (6) by unsorted camera index; points (3) by sorted point index.
+    shapes = [(60, 140_000, 9, False), (60, 140_000, 3, False), (60, 140_000, 8, False),
+              (60, 140_000, 1, False), (60, 140_000, 6, False), (14_000, 140_000, 3, True)]
+    results["gather_rows"] = {s[:3]: gather_case(*s) for s in shapes}
 
 
 def textured_images(n: int, size: int, seed: int):
@@ -355,6 +523,7 @@ def phase_localize(results):
     require(r1 >= 0.875, f"localize: recall@(0.25m, 2deg) {r1} < 0.875")
     require(mutual_nn_match_cuda.launches > 0, "localize: the matcher kernel was not launched")
     profile_query(eng, scene)
+    return store, scene
 
 
 def device_profile(fn) -> dict:
@@ -406,23 +575,296 @@ def profile_query(eng, scene):
          top_port_functions_cum=[[k, round(ms, 3), n] for k, ms, n in funcs[:12]])
 
 
+def device_sync(device):
+    """A function that waits for the device's queued work (none on the CPU)."""
+    return torch.cuda.synchronize if torch.device(device).type == "cuda" else (lambda: None)
+
+
+class StageTimer:
+    """Seconds per stage of an entry point: for the duration of a `with`,
+    the named module-level functions that the entry point calls are
+    wrapped, and the card is synchronised after each call so that its work
+    is counted in the stage. The last return value of each is kept."""
+
+    def __init__(self, module, names, device):
+        self.module, self.names = module, names
+        self.sync = device_sync(device)
+        self.seconds = collections.Counter()
+        self.calls = collections.Counter()
+        self.returned = {}
+        self._orig = {}
+
+    def __enter__(self):
+        for name in self.names:
+            fn = self._orig[name] = getattr(self.module, name)
+
+            def timed(*args, _fn=fn, _name=name, **kwargs):
+                t0 = time.perf_counter()
+                out = _fn(*args, **kwargs)
+                self.sync()
+                self.seconds[_name] += time.perf_counter() - t0
+                self.calls[_name] += 1
+                self.returned[_name] = out
+                return out
+
+            setattr(self.module, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self._orig.items():
+            setattr(self.module, name, fn)
+
+    def report(self) -> dict:
+        return {name: dict(seconds=round(self.seconds[name], 3), calls=self.calls[name])
+                for name in self.names}
+
+
+def gt_point(map_index, image_id: int, kp: int):
+    """Ground-truth xyz of a scene keypoint, or None if it sees no 3D point."""
+    p = int(map_index.images[image_id].point3D_ids[kp])
+    return map_index.point_xyz[map_index.point_row[p]] if p >= 0 else None
+
+
+def point_errors(map_index, points3d, image_id_of) -> tuple:
+    """(reconstructed xyz [P, 3], ground truth [P, 3]) of every point whose
+    first observation sees a ground-truth point; image_id_of maps a model
+    image id to the scene's."""
+    rec, gt = [], []
+    for pt in points3d.values():
+        for iid, k in zip(pt.image_ids.tolist(), pt.point2D_idxs.tolist()):
+            g = gt_point(map_index, image_id_of(iid), k)
+            if g is not None:
+                rec.append(pt.xyz)
+                gt.append(g)
+                break
+    return np.array(rec).reshape(-1, 3), np.array(gt).reshape(-1, 3)
+
+
+def map_ba_problem(cameras, images, points3d, device) -> BAProblem:
+    """A map BA over a triangulated model, assembled as
+    scripts/bench_scale.py does: every camera and point, the first two
+    cameras fixed to pin the gauge."""
+    iids = sorted(images)
+    row = {iid: r for r, iid in enumerate(iids)}
+    pids = sorted(points3d)
+    img = np.concatenate([points3d[p].image_ids for p in pids]).astype(np.int64)
+    kps = np.concatenate([points3d[p].point2D_idxs for p in pids]).astype(np.int64)
+    obs_pt = np.repeat(np.arange(len(pids)), [len(points3d[p].image_ids) for p in pids])
+    obs_xy = np.stack([images[i].xys[k] for i, k in zip(img.tolist(), kps.tolist())])
+    cam8 = np.stack([canonicalize_params(cameras[images[i].camera_id].model,
+                                         cameras[images[i].camera_id].params) for i in iids])
+    fixed = np.zeros(len(iids), bool)
+    fixed[:2] = True
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)  # noqa: E731
+    return BAProblem(
+        obs_xy=f32(obs_xy), obs_cam=torch.as_tensor([row[i] for i in img.tolist()],
+                                                    dtype=torch.int32, device=device),
+        obs_point=torch.as_tensor(obs_pt, dtype=torch.int32, device=device),
+        obs_w=torch.ones(len(obs_pt), device=device),
+        qvecs=f32([images[i].qvec for i in iids]), tvecs=f32([images[i].tvec for i in iids]),
+        cam_params=f32(cam8), points=f32([points3d[p].xyz for p in pids]),
+        fixed_cams=torch.as_tensor(fixed, device=device))
+
+
+def run_map_build(store, scene, device, max_keypoints: int, batch_size: int = 16) -> dict:
+    """The map-building slice (hloc/triangulation.py) on the scene's DB
+    images: the reference model written with its observations stripped
+    and read back, covis-20 DB pairs, NNM matching, ``triangulate_map``,
+    then a map BA (lm_iters=2, cg_iters=8). Fails on any missed bar."""
+    mi = scene.map_index
+    sync = device_sync(device)
+    sec = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ref_dir = Path(tmp) / "reference"
+        stripped = {iid: Image(iid, im.qvec, im.tvec, im.camera_id, im.name, np.zeros((0, 2)),
+                               np.zeros(0, np.int64)) for iid, im in mi.images.items()}
+        write_model(mi.cameras, stripped, {}, ref_dir)
+        _, ref_images, ref_points = read_model(ref_dir)
+        require(ref_images.keys() == mi.images.keys() and not ref_points
+                and all(len(im.xys) == 0 for im in ref_images.values()),
+                "map_build: the stripped reference model did not read back")
+
+        t0 = time.perf_counter()
+        pairs = pairs_from_covisibility(mi, num_matched=20)
+        sec["pairs"] = time.perf_counter() - t0
+        unique = {frozenset(p) for p in pairs}
+        matches = MatchStore()
+        t0 = time.perf_counter()
+        n_matched = match_pairs(store, pairs, matches,
+                                MatchConfig(matcher="NNM", max_keypoints=max_keypoints,
+                                            batch_size=batch_size), device=device)
+        sync()
+        sec["match_pairs"] = time.perf_counter() - t0
+        require(n_matched == len(unique) and all(matches.has_pair(a, b) for a, b in pairs),
+                f"map_build: {n_matched} of {len(unique)} pairs matched")
+
+        t0 = time.perf_counter()
+        with StageTimer(sfm_pipeline, ("geometric_verification", "build_tracks",
+                                       "triangulate_tracks"), device) as stages:
+            cameras, images, points3d, stats = triangulate_map(ref_dir, store, matches, pairs,
+                                                               None, TriangulationConfig(),
+                                                               device=device)
+        sec["triangulate_map"] = time.perf_counter() - t0
+
+    # Every pair that shares ≥ 50 ground-truth points is verified.
+    verified = {frozenset((a, b)) for a, b, _ in stages.returned["geometric_verification"]}
+    covis = (mi.incidence @ mi.incidence.T).toarray()
+    row = {n: r for r, n in enumerate(mi.names)}
+    strong = {p for p in unique if covis[row[min(p)], row[max(p)]] >= 50}
+    missed = len(strong - verified)
+    require(missed == 0, f"map_build: {missed} of {len(strong)} pairs sharing ≥ 50 points not verified")
+    rec, gt = point_errors(mi, points3d, lambda iid: iid)
+    dist = np.linalg.norm(rec - gt, axis=1)
+    med = float(np.median(dist)) if len(dist) else float("inf")
+    require(med < 0.05, f"map_build: median point error {med} ≥ 0.05")
+    require(stats["mean_reprojection_error"] < 1.0,
+            f"map_build: mean reprojection error {stats['mean_reprojection_error']} ≥ 1 px")
+
+    t0 = time.perf_counter()
+    problem = map_ba_problem(cameras, images, points3d, device)
+    res = bundle_adjust(problem, lm_iters=2, cg_iters=8)
+    initial, final = float(res.initial_cost), float(res.final_cost)
+    sec["bundle_adjust"] = time.perf_counter() - t0
+    require(final < initial, f"map_build: BA cost {initial} → {final} did not fall")
+    return dict(seconds={k: round(v, 3) for k, v in sec.items()},
+                triangulate_map_stages=stages.report(), pairs=len(pairs), unique_pairs=len(unique),
+                verified_pairs=len(verified), strong_pairs=len(strong), points3D=stats["num_points3D"],
+                mean_track_length=stats["mean_track_length"],
+                mean_reprojection_error_px=stats["mean_reprojection_error"],
+                median_point_error=med, points_with_gt=len(dist),
+                ba_observations=int(problem.obs_xy.shape[0]), ba_initial_cost=initial,
+                ba_final_cost=final)
+
+
+def umeyama(src, dst):
+    """Similarity transform (s, R, t) aligning src → dst."""
+    mu_s, mu_d = src.mean(0), dst.mean(0)
+    sc, dc = src - mu_s, dst - mu_d
+    u, d, vt = np.linalg.svd(dc.T @ sc / len(src))
+    s_fix = np.eye(3)
+    if np.linalg.det(u @ vt) < 0:
+        s_fix[2, 2] = -1
+    rot = u @ s_fix @ vt
+    scale = np.trace(np.diag(d) @ s_fix) / ((sc ** 2).sum() / len(src))
+    return scale, rot, mu_d - scale * rot @ mu_s
+
+
+def run_reconstruct(store, scene, device, max_keypoints: int, n_images: int = 12,
+                    batch_size: int = 16) -> dict:
+    """``incremental_reconstruction`` from scratch on the first `n_images`
+    DB images and their covis-20 pairs, matched with the NNR preset; held
+    against ground truth after a Umeyama similarity fitted on points (the
+    corridor's cameras are near-collinear, which leaves a fit on centres a
+    free rotation), with the bars of tests/test_reconstruction.py."""
+    mi = scene.map_index
+    sync = device_sync(device)
+    names = [mi.images[i].name for i in sorted(mi.images)[:n_images]]
+    keep = set(names)
+    pairs = [(a, b) for a, b in pairs_from_covisibility(mi, num_matched=20)
+             if a in keep and b in keep]
+    matches = MatchStore()
+    t0 = time.perf_counter()
+    match_pairs(store, pairs, matches, MatchConfig(matcher="NNR", max_keypoints=max_keypoints,
+                                                   batch_size=batch_size), device=device)
+    sync()
+    match_s = time.perf_counter() - t0
+    cams = {n: Camera(1, scene.cam_model, scene.width, scene.height, np.asarray(scene.cam_params))
+            for n in names}
+    t0 = time.perf_counter()
+    with StageTimer(sfm_reconstruction, ("geometric_verification", "build_tracks",
+                                         "triangulate_tracks", "pnp_ransac", "bundle_adjust"),
+                    device) as stages:
+        _, images, points3d, stats = incremental_reconstruction(
+            store, matches, pairs, cams, ReconstructionConfig(), device=device)
+    recon_s = time.perf_counter() - t0
+    n_reg = stats["num_reg_images"]
+    require(n_reg >= n_images - 2, f"reconstruct: {n_reg} of {n_images} images registered")
+    scene_id = {iid: mi.name_to_image_id[im.name] for iid, im in images.items()}
+    rec, gt = point_errors(mi, points3d, scene_id.get)
+    require(len(rec) >= 8, f"reconstruct: only {len(rec)} points see ground truth")
+    s, rot, tr = umeyama(rec, gt)
+    dist = np.linalg.norm((s * (rot @ rec.T)).T + tr - gt, axis=1)
+    med = float(np.median(dist))
+    require(med < 0.05, f"reconstruct: median aligned point error {med} ≥ 0.05")
+    centre_err = []
+    for iid, im in images.items():
+        ref = mi.images[scene_id[iid]]
+        c_al = s * (rot @ camera_center(im.qvec, im.tvec)) + tr
+        centre_err.append(float(np.linalg.norm(c_al - camera_center(ref.qvec, ref.tvec))))
+    require(max(centre_err) < 0.1, f"reconstruct: camera centre error {max(centre_err)} ≥ 0.1")
+    return dict(seconds=dict(match_pairs=round(match_s, 3), reconstruct=round(recon_s, 3)),
+                stages=stages.report(), images=n_images, pairs=len(pairs), registered=n_reg,
+                points3D=stats["num_points3D"], median_point_error=med,
+                point_error_under_0_2=float((dist < 0.2).mean()),
+                max_centre_error=max(centre_err))
+
+
+def profile_entry(phase: str, fn):
+    """Where an entry point's time goes, after its timed run: one traced run
+    (device_profile), then the port's host functions with the most
+    cumulative time (cProfile, a second run)."""
+    import cProfile
+    import pstats
+
+    traced = device_profile(fn)
+    pr = cProfile.Profile()
+    pr.enable()
+    fn()
+    torch.cuda.synchronize()
+    pr.disable()
+    funcs = sorted(((f"{Path(f).name}:{ln}:{name}", v[3] * 1e3, v[1])
+                    for (f, ln, name), v in pstats.Stats(pr).stats.items() if "sfd2_torch" in f),
+                   key=lambda r: -r[1])
+    emit(phase, **traced, top_port_functions_cum=[[k, round(ms, 3), n] for k, ms, n in funcs[:12]])
+
+
+def launches_by_shape(counts) -> dict:
+    return {name: [[*k, v] for k, v in counts[name].items()] for name in KERNELS if counts[name]}
+
+
+def phase_map_build(results, store, scene):
+    reset_launches()
+    out = run_map_build(store, scene, "cuda", max_keypoints=4096)
+    counts = read_launches()
+    results["main_path"].append(counts)
+    emit("map_build", **out, launches={k: sum(v.values()) for k, v in counts.items()},
+         launch_shapes=launches_by_shape(counts))
+    require(counts["mutual_nn_match"] and counts["gather_rows"],
+            "map_build: K2 and K3 must both run")
+
+
+def phase_reconstruct(results, store, scene):
+    reset_launches()
+    out = run_reconstruct(store, scene, "cuda", max_keypoints=4096)
+    counts = read_launches()
+    results["main_path"].append(counts)
+    emit("reconstruct", **out, launches={k: sum(v.values()) for k, v in counts.items()},
+         launch_shapes=launches_by_shape(counts))
+    require(counts["mutual_nn_ratio_match"] and counts["gather_rows"],
+            "reconstruct: K4 and K3 must both run")
+
+
 def kernel_table(results, shapes: dict) -> list:
-    """One row per kernel: launches on the main path, and the numbers of
-    its first compared shape (the largest main-path launch), with every
-    compared shape and its main-path launches under ``shapes``."""
+    """One row per kernel: launches on the main paths, and the numbers of
+    the compared launch record where the main paths spent the most kernel
+    time (launches × ms), with every compared record (``key``: the
+    wrapper's shape-and-layout record) and its main-path launches under
+    ``shapes``."""
     table = []
     for name, k in KERNELS.items():
         rows = results[name]
-        per_shape = [dict(launches=shapes[name].get(key, 0), **row) for key, row in rows.items()]
-        first = per_shape[0]
+        per_shape = [dict(key=list(key), launches=shapes[name].get(key, 0), **row)
+                     for key, row in rows.items()]
+        first = max(per_shape, key=lambda r: r["launches"] * r["ms"])
         table.append(dict(
             name=name, route=k["route"], source=k["source"], replaces=k["replaces"],
             launches=sum(shapes[name].values()),
             max_abs_err=max(r["max_abs_err"] for r in per_shape), ms=first["ms"],
             plain_ms=first["plain_ms"], bound_ms=first["bound_ms"], bound_by=first["bound_by"],
             library_ms=first["library_ms"],
-            shapes=[{f: r[f] for f in ("shape", "launches", "max_abs_err", "ms", "plain_ms",
-                                       "bound_ms", "bound_by", "library_ms")}
+            shapes=[{f: r[f] for f in ("key", "launches", "max_abs_err", "ms", "plain_ms",
+                                       "bound_ms", "bound_by", "library_ms", "kernel_device_ms",
+                                       "library_device_ms") if f in r}
                     for r in per_shape]))
     return table
 
@@ -445,21 +887,31 @@ def main():
     phase_build(results)
     stem_case = phase_kernel_stem(results, state)
     phase_kernel_match(results)
-    # The main path: extract, then localize, each with the counts set to 0
-    # just before it and read just after.
+    phase_kernel_gather(results)
+    phase_kernel_match_ratio(results)
+    # The main paths: extract, localize, map building and reconstruction,
+    # each with the counts set to 0 just before it and read just after.
     phase_extract(results, state)
-    phase_localize(results)
+    store, scene = phase_localize(results)
+    phase_map_build(results, store, scene)
+    phase_reconstruct(results, store, scene)
 
     shapes = {name: sum((run[name] for run in results["main_path"]), collections.Counter())
               for name in KERNELS}
     for name in KERNELS:
         require(sum(shapes[name].values()) > 0, f"{name}: not launched on the main path")
     # Every shape the main path launched is held against the plain version.
-    cases = {"fused_stem": stem_case, "mutual_nn_match": match_case}
+    cases = {"fused_stem": stem_case, "mutual_nn_match": match_case,
+             "gather_rows": gather_case, "mutual_nn_ratio_match": ratio_case}
     for name, counts in shapes.items():
         for key in counts:
             if key not in results[name]:
                 results[name][key] = cases[name](*key)
+    # Where the map phases' time goes: a traced run and a cProfile run each.
+    profile_entry("map_build_profile",
+                  lambda: run_map_build(store, scene, "cuda", max_keypoints=4096))
+    profile_entry("reconstruct_profile",
+                  lambda: run_reconstruct(store, scene, "cuda", max_keypoints=4096))
     table = kernel_table(results, shapes)
     emit("summary", seconds=round(time.perf_counter() - t_start, 1))
     print(json.dumps({"kernels": table}), flush=True)

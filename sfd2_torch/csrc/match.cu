@@ -26,18 +26,14 @@
 // order-preserving int encoding of the float — exact and order-free.
 // The epilogue is a plain indexed load of cmax at nn12. Ragged N1/N2 are
 // masked in-kernel. bf16 descriptors are widened to f32 when staged.
-// No tensor cores, TMA or double buffering yet.
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
+// No tensor cores, TMA or double buffering yet. The tiling, staging and FMA
+// tile are shared with K4 in csrc/match_common.cuh.
 #include <math.h>
 #include <stdint.h>
 
-namespace {
+#include "match_common.cuh"
 
-constexpr int BM = 128;
-constexpr int BN = 64;
-constexpr int THREADS = 256;  // 16 × 16; thread tile 8 rows × 4 columns
-constexpr float NEG = -1e9f;
+namespace {
 
 __device__ __forceinline__ int enc(float f) {
   const int i = __float_as_int(f);
@@ -46,35 +42,6 @@ __device__ __forceinline__ int enc(float f) {
 
 __device__ __forceinline__ float dec(int i) {
   return __int_as_float(i >= 0 ? i : i ^ 0x7fffffff);
-}
-
-__device__ __forceinline__ float4 load4(const float* p) {
-  return __ldg(reinterpret_cast<const float4*>(p));
-}
-
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 raw = __ldg(reinterpret_cast<const uint2*>(p));
-  const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&raw.x);
-  const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&raw.y);
-  const float2 a = __bfloat1622float2(lo), b = __bfloat1622float2(hi);
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
-// Stage rows [row0, row0+rows) of a [n, C] matrix into smem k-major:
-// dst[k * rows + r]; rows past n are zero.
-template <typename T>
-__device__ __forceinline__ void stage(float* dst, const T* src, int row0, int rows,
-                                      int n, int C) {
-  const int c4 = C / 4;
-  for (int idx = threadIdx.x; idx < rows * c4; idx += THREADS) {
-    const int r = idx % rows, k = (idx / rows) * 4;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < n) v = load4(src + (size_t)(row0 + r) * C + k);
-    dst[(k + 0) * rows + r] = v.x;
-    dst[(k + 1) * rows + r] = v.y;
-    dst[(k + 2) * rows + r] = v.z;
-    dst[(k + 3) * rows + r] = v.w;
-  }
 }
 
 template <typename T>
@@ -122,23 +89,7 @@ mutual_kernel(const T* __restrict__ d0, const T* __restrict__ d1,
     __syncthreads();
 
     float acc[8][4];
-#pragma unroll
-    for (int r = 0; r < 8; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
-    for (int k = 0; k < C; ++k) {
-      const float4 a0 = *reinterpret_cast<const float4*>(q_s + k * BM + ty * 8);
-      const float4 a1 = *reinterpret_cast<const float4*>(q_s + k * BM + ty * 8 + 4);
-      const float4 w = *reinterpret_cast<const float4*>(d_s + k * BN + tx * 4);
-      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-#pragma unroll
-      for (int r = 0; r < 8; ++r) {
-        acc[r][0] = fmaf(a[r], w.x, acc[r][0]);
-        acc[r][1] = fmaf(a[r], w.y, acc[r][1]);
-        acc[r][2] = fmaf(a[r], w.z, acc[r][2]);
-        acc[r][3] = fmaf(a[r], w.w, acc[r][3]);
-      }
-    }
+    dot_tile(acc, q_s, d_s, ty, tx, C);
 
     float cm[4];
 #pragma unroll
@@ -224,14 +175,13 @@ int launch(const T* d0, const T* d1, const uint8_t* v0, const uint8_t* v1,
       mutual_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const size_t ncol = (size_t)B * N2;
-  fill_kernel<<<(unsigned)((ncol + 255) / 256 < 4096 ? (ncol + 255) / 256 : 4096), 256, 0,
-                stream>>>(cmax_enc, ncol, 2.f * NEG);
+  fill_kernel<<<grid_for(ncol), 256, 0, stream>>>(cmax_enc, ncol, 2.f * NEG);
   const dim3 grid((N1 + BM - 1) / BM, B);
   mutual_kernel<T><<<grid, THREADS, smem, stream>>>(d0, d1, v0, v1, sd0, sd1, sv0, sv1,
                                                     N1, N2, C, rmax, ridx, cmax_enc);
   const size_t nrow = (size_t)B * N1;
-  epilogue_kernel<<<(unsigned)((nrow + 255) / 256 < 4096 ? (nrow + 255) / 256 : 4096), 256, 0,
-                    stream>>>(rmax, ridx, cmax_enc, v0, sv0, B, N1, N2, matches, scores);
+  epilogue_kernel<<<grid_for(nrow), 256, 0, stream>>>(rmax, ridx, cmax_enc, v0, sv0, B, N1,
+                                                       N2, matches, scores);
   return (int)cudaGetLastError();
 }
 

@@ -15,6 +15,23 @@ import torch
 
 from sfd2_torch.geometry.rotations import qvec_to_rotmat
 
+# COLMAP camera models: (model_id, name, number of parameters).
+CAMERA_MODELS = [
+    (0, "SIMPLE_PINHOLE", 3),
+    (1, "PINHOLE", 4),
+    (2, "SIMPLE_RADIAL", 4),
+    (3, "RADIAL", 5),
+    (4, "OPENCV", 8),
+    (5, "OPENCV_FISHEYE", 8),
+    (6, "FULL_OPENCV", 12),
+    (7, "FOV", 5),
+    (8, "SIMPLE_RADIAL_FISHEYE", 4),
+    (9, "RADIAL_FISHEYE", 5),
+    (10, "THIN_PRISM_FISHEYE", 12),
+]
+CAMERA_MODEL_IDS = {m[0]: (m[1], m[2]) for m in CAMERA_MODELS}
+CAMERA_MODEL_NAMES = {m[1]: (m[0], m[2]) for m in CAMERA_MODELS}
+
 
 @dataclasses.dataclass(frozen=True)
 class Camera:

@@ -1,10 +1,11 @@
-"""Per-image feature store: HDF5 file or in-memory dict, one interface.
+"""Feature and match stores: HDF5 file or in-memory dict, one interface.
 
-Port of ``sfd2_tpu/io/feature_store.py`` (``FeatureStore`` and
-``ImageFeatures``). The reference layout is kept: one group per image
-with ``keypoints`` [N, 2], ``descriptors`` **[C, N]**, ``scores`` [N],
-``image_size`` and optional ``labels``. ``FeatureStore(path)`` opens an
-HDF5 file (h5py is imported only then); ``FeatureStore()`` with no path
+Port of ``sfd2_tpu/io/feature_store.py``. The reference layouts are kept:
+one group per image with ``keypoints`` [N, 2], ``descriptors`` **[C, N]**,
+``scores`` [N], ``image_size`` and optional ``labels``; one group per
+pair, named ``names_to_pair(n0, n1)``, with ``matches0`` and
+``matching_scores0`` (``hloc/match_features.py:113-119``). A store opened
+with a path is an HDF5 file (h5py is imported only then); with no path it
 keeps the same groups in a dict, for machines without h5py.
 """
 
@@ -23,6 +24,11 @@ class ImageFeatures(NamedTuple):
     scores: np.ndarray  # [N] float32
     image_size: np.ndarray | None  # [2] (w, h) or None
     labels: np.ndarray | None = None  # [N] int32 semantic ids (0 = none)
+
+
+def names_to_pair(name0: str, name1: str) -> str:
+    """hloc pair-group key (``hloc/utils/parsers.py:66``)."""
+    return "_".join((name0.replace("/", "-"), name1.replace("/", "-")))
 
 
 def _open_h5(path: Path, mode: str):
@@ -134,3 +140,76 @@ class FeatureStore:
                 lb[:n] = f.labels[:n]
             return kp, de, sc, va, lb
         return kp, de, sc, va
+
+
+class MatchStore:
+    """Read/write pairwise matches (reference-compatible layout)."""
+
+    def __init__(self, path: os.PathLike | None = None, mode: str = "r"):
+        self.path = Path(path) if path is not None else None
+        self._groups: Dict[str, Dict[str, np.ndarray]] | None = None
+        self._f = None
+        if self.path is None:
+            self._groups = {}
+        else:
+            self._f = _open_h5(self.path, mode)
+
+    def close(self):
+        if self._f is not None:
+            self._f.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    def _store(self):
+        return self._groups if self._f is None else self._f
+
+    def has_pair(self, name0: str, name1: str) -> bool:
+        store = self._store()
+        return names_to_pair(name0, name1) in store or names_to_pair(name1, name0) in store
+
+    def write(self, name0, name1, matches0: np.ndarray, scores0: np.ndarray | None = None):
+        # int32, not the reference's int16: max_keypoints is a free knob and
+        # indices above 32767 must not wrap.
+        data = {"matches0": np.asarray(matches0, np.int32)}
+        if scores0 is not None:
+            data["matching_scores0"] = np.asarray(scores0, np.float16)
+        key = names_to_pair(name0, name1)
+        if self._f is None:
+            self._groups[key] = data
+            return
+        if key in self._f:
+            del self._f[key]
+        grp = self._f.create_group(key)
+        for k, arr in data.items():
+            grp.create_dataset(k, data=arr)
+
+    def _read_group(self, key: str):
+        grp = self._store()[key]
+        m = np.asarray(grp["matches0"][()]).astype(np.int64)
+        s = (np.asarray(grp["matching_scores0"][()]).astype(np.float32)
+             if "matching_scores0" in grp else np.zeros(len(m), np.float32))
+        return m, s
+
+    def read(self, name0, name1, num_keypoints0: int | None = None):
+        """(matches0 [N0] int64, scores0 [N0] float32); reading a reversed
+        pair inverts the match direction. For reversed reads, pass
+        `num_keypoints0` (name0's keypoint count) to size the output;
+        otherwise it covers only up to the largest matched index."""
+        key = names_to_pair(name0, name1)
+        if key in self._store():
+            return self._read_group(key)
+        m_rev, s_rev = self._read_group(names_to_pair(name1, name0))
+        # Invert: matches0_fwd[j] = i where m_rev[i] = j.
+        max_idx = int(m_rev.max()) + 1 if m_rev.size and m_rev.max() >= 0 else 0
+        n0 = max(num_keypoints0 if num_keypoints0 is not None else max_idx, 0)
+        m = np.full(n0, -1, np.int64)
+        s = np.zeros(n0, np.float32)
+        src = np.nonzero(m_rev >= 0)[0]
+        src = src[m_rev[src] < n0]
+        m[m_rev[src]] = src
+        s[m_rev[src]] = s_rev[src]
+        return m, s

@@ -2,7 +2,8 @@
 
 Each ``sfd2_torch/csrc/<name>.cu`` is compiled on its own for ``sm_90a``
 into ``sfd2_torch/_build/lib<name>-<hash>.so`` (the hash covers the
-source and the flags, so an edited source is rebuilt) and loaded with
+source, the shared ``csrc/*.cuh`` headers and the flags, so an edited
+source or header is rebuilt) and loaded with
 ctypes. Nothing is built when a module is imported: ``load`` builds on
 first use, ``build`` compiles several sources in parallel (one nvcc
 process each, all started together).
@@ -37,7 +38,8 @@ def _nvcc() -> str:
 
 def _paths(name: str):
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode())
     return src, BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 

@@ -34,11 +34,44 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check_rows(t: torch.Tensor, name: str, align: int):
+def _check_rows(t: torch.Tensor, name: str, align: int, what: str):
     if t.stride(-1) != 1 or (t.ndim == 3 and t.stride(1) != t.shape[2]):
-        raise ValueError(f"mutual_nn_match_cuda: {name} rows must be contiguous")
+        raise ValueError(f"{what}: {name} rows must be contiguous")
     if t.data_ptr() % align:
-        raise ValueError(f"mutual_nn_match_cuda: {name} is not {align}-byte aligned")
+        raise ValueError(f"{what}: {name} is not {align}-byte aligned")
+
+
+def check_match_args(desc0: torch.Tensor, desc1: torch.Tensor, valid0, valid1, what: str):
+    """Validate the arguments of a matcher kernel (K2, K4) on CUDA tensors;
+    returns (b, n1, n2, c, valid0, valid1) with absent masks made all-valid
+    (valid0 broadcast with batch stride 0)."""
+    if desc0.device.type != "cuda" or desc1.device != desc0.device:
+        raise ValueError(f"{what}: unsupported devices {desc0.device}, {desc1.device}")
+    if desc0.ndim != 3 or desc1.ndim != 3:
+        raise ValueError(f"{what}: need [B, N, C] descriptors")
+    b, n1, c = desc0.shape
+    n2 = desc1.shape[1]
+    if desc1.shape[0] != b or desc1.shape[2] != c:
+        raise ValueError(f"{what}: shapes {tuple(desc0.shape)} vs {tuple(desc1.shape)}")
+    if desc0.dtype != desc1.dtype or desc0.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{what}: unsupported dtypes {desc0.dtype}, {desc1.dtype}")
+    if c % 4 or not 0 < c <= 256 or b == 0 or n1 == 0 or n2 == 0:
+        raise ValueError(f"{what}: unsupported shape B={b} N1={n1} N2={n2} C={c}")
+    dev = desc0.device
+    if valid0 is None:
+        valid0 = torch.ones((1, n1), dtype=torch.bool, device=dev).expand(b, n1)
+    if valid1 is None:
+        valid1 = torch.ones((b, n2), dtype=torch.bool, device=dev)
+    if valid0.shape != (b, n1) or valid1.shape != (b, n2) \
+            or valid0.dtype != torch.bool or valid1.dtype != torch.bool \
+            or valid0.device != dev or valid1.device != dev:
+        raise ValueError(f"{what}: valid masks must be bool [B, N] on the descriptors' device")
+    align = 16 if desc0.dtype == torch.float32 else 8
+    _check_rows(desc0, "desc0", align, what)
+    _check_rows(desc1, "desc1", align, what)
+    _check_rows(valid0, "valid0", 1, what)
+    _check_rows(valid1, "valid1", 1, what)
+    return b, n1, n2, c, valid0, valid1
 
 
 def mutual_nn_match_cuda(desc0: torch.Tensor, desc1: torch.Tensor,
@@ -49,33 +82,9 @@ def mutual_nn_match_cuda(desc0: torch.Tensor, desc1: torch.Tensor,
     for no match, scores0 [B, N1] float32)."""
     if desc0.device.type == "cpu":
         return mutual_nn_match(desc0, desc1, valid0, valid1)
-    if desc0.device.type != "cuda" or desc1.device != desc0.device:
-        raise ValueError(f"mutual_nn_match_cuda: unsupported devices {desc0.device}, {desc1.device}")
-    if desc0.ndim != 3 or desc1.ndim != 3:
-        raise ValueError("mutual_nn_match_cuda: need [B, N, C] descriptors")
-    b, n1, c = desc0.shape
-    n2 = desc1.shape[1]
-    if desc1.shape[0] != b or desc1.shape[2] != c:
-        raise ValueError(f"mutual_nn_match_cuda: shapes {tuple(desc0.shape)} vs {tuple(desc1.shape)}")
-    if desc0.dtype != desc1.dtype or desc0.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"mutual_nn_match_cuda: unsupported dtypes {desc0.dtype}, {desc1.dtype}")
-    if c % 4 or not 0 < c <= 256 or b == 0 or n1 == 0 or n2 == 0:
-        raise ValueError(f"mutual_nn_match_cuda: unsupported shape B={b} N1={n1} N2={n2} C={c}")
+    b, n1, n2, c, valid0, valid1 = check_match_args(desc0, desc1, valid0, valid1,
+                                                     "mutual_nn_match_cuda")
     dev = desc0.device
-    if valid0 is None:
-        valid0 = torch.ones((1, n1), dtype=torch.bool, device=dev).expand(b, n1)
-    if valid1 is None:
-        valid1 = torch.ones((b, n2), dtype=torch.bool, device=dev)
-    if valid0.shape != (b, n1) or valid1.shape != (b, n2) \
-            or valid0.dtype != torch.bool or valid1.dtype != torch.bool \
-            or valid0.device != dev or valid1.device != dev:
-        raise ValueError("mutual_nn_match_cuda: valid masks must be bool [B, N] on the descriptors' device")
-    align = 16 if desc0.dtype == torch.float32 else 8
-    _check_rows(desc0, "desc0", align)
-    _check_rows(desc1, "desc1", align)
-    _check_rows(valid0, "valid0", 1)
-    _check_rows(valid1, "valid1", 1)
-
     rmax = torch.empty((b, n1), dtype=torch.float32, device=dev)
     ridx = torch.empty((b, n1), dtype=torch.int32, device=dev)
     cmax = torch.empty((b, n2), dtype=torch.int32, device=dev)
@@ -92,9 +101,10 @@ def mutual_nn_match_cuda(desc0: torch.Tensor, desc1: torch.Tensor,
             matches.data_ptr(), scores.data_ptr(), stream)
     cuda_build.check(lib, code, "mutual_nn_match_cuda")
     mutual_nn_match_cuda.launches += 1
-    mutual_nn_match_cuda.shapes[(b, n1, n2, c)] += 1
+    mutual_nn_match_cuda.shapes[(b, n1, n2, c, desc0.stride(0) == 0)] += 1
     return matches, scores
 
 
 mutual_nn_match_cuda.launches = 0
-mutual_nn_match_cuda.shapes = collections.Counter()  # (b, n1, n2, c) of each launch
+# (b, n1, n2, c, desc0 broadcast with batch stride 0) of each launch
+mutual_nn_match_cuda.shapes = collections.Counter()

@@ -1,0 +1,74 @@
+"""Bundle adjustment of the port against the JAX package.
+
+The problems are those of ``tests/test_ba.py`` (6 cameras, 120 points,
+cameras 0 and 1 fixed as gauge anchors). Both packages run the same
+Schur-PCG Levenberg–Marquardt in float32 with sums taken in another
+order, so the final cost is held to 1e-3 relative and the poses to 1e-4:
+both runs converge to the same minimum, where rounding no longer moves
+the estimate at that level.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from sfd2_torch.ops.cuda_gather import gather_rows_cuda
+from sfd2_torch.sfm import ba as tba
+from sfd2_tpu.sfm import ba as jba
+from test_ba import build_problem
+
+torch.set_num_threads(2)
+
+
+def _port_problem(problem):
+    return tba.BAProblem(*(torch.from_numpy(np.array(a)) for a in problem))
+
+
+def _compare(ref, got, cost_rtol=1e-3, pose_atol=1e-4):
+    np.testing.assert_allclose(float(got.initial_cost), float(ref.initial_cost), rtol=1e-5)
+    np.testing.assert_allclose(float(got.final_cost), float(ref.final_cost), rtol=cost_rtol)
+    q_t, q_j = got.qvecs.numpy(), np.asarray(ref.qvecs)
+    sign = np.sign(np.sum(q_t * q_j, axis=1, keepdims=True))
+    np.testing.assert_allclose(q_t * sign, q_j, atol=pose_atol)
+    np.testing.assert_allclose(got.tvecs.numpy(), np.asarray(ref.tvecs), atol=pose_atol)
+
+
+@pytest.mark.parametrize("lm_iters,cg_iters", [(10, 15), (3, 5)])
+def test_bundle_adjust_matches_jax(lm_iters, cg_iters):
+    problem, _ = build_problem(np.random.default_rng(0))
+    ref = jba.bundle_adjust(problem, lm_iters=lm_iters, cg_iters=cg_iters)
+    before = gather_rows_cuda.launches
+    got = tba.bundle_adjust(_port_problem(problem), lm_iters=lm_iters, cg_iters=cg_iters)
+    assert gather_rows_cuda.launches == before  # CPU tensors: K3's plain version
+    assert float(got.final_cost) < float(got.initial_cost) * 0.2
+    _compare(ref, got)
+    np.testing.assert_allclose(got.tvecs[:2].numpy(), np.asarray(problem.tvecs)[:2], atol=1e-6)
+
+
+def test_bundle_adjust_with_outliers_matches_jax():
+    problem, _ = build_problem(np.random.default_rng(0), n_outliers=60)
+    ref = jba.bundle_adjust(problem, lm_iters=10, cg_iters=15, huber_delta=2.0)
+    got = tba.bundle_adjust(_port_problem(problem), lm_iters=10, cg_iters=15, huber_delta=2.0)
+    _compare(ref, got)
+
+
+def test_point_only_bundle_adjust_matches_jax():
+    problem, _ = build_problem(np.random.default_rng(0), perturb=False)
+    problem = problem._replace(points=problem.points + 0.1,
+                               fixed_cams=jnp.ones(problem.qvecs.shape[0], bool))
+    ref = jba.bundle_adjust(problem, lm_iters=15, cg_iters=5)
+    got = tba.bundle_adjust(_port_problem(problem), lm_iters=15, cg_iters=5)
+    _compare(ref, got)
+    np.testing.assert_allclose(got.points.numpy(), np.asarray(ref.points), atol=1e-4)
+
+
+def test_small_block_inverses_match_jax(rng):
+    a = rng.normal(size=(7, 6, 6)).astype(np.float32)
+    spd = a @ np.swapaxes(a, -1, -2) + 0.5 * np.eye(6, dtype=np.float32)
+    np.testing.assert_allclose(tba._inv6_spd_lanes(torch.from_numpy(spd)).numpy(),
+                               np.asarray(jba._inv6_spd_lanes(jnp.asarray(spd))),
+                               rtol=1e-3, atol=1e-4)
+    m3 = spd[:, :3, :3]
+    np.testing.assert_allclose(tba._inv3_lanes(torch.from_numpy(m3)).numpy(),
+                               np.asarray(jba._inv3_lanes(jnp.asarray(m3))), rtol=1e-4, atol=1e-5)

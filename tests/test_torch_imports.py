@@ -37,7 +37,10 @@ def test_port_lists_the_slice_modules():
                  "ops.cuda_stem", "ops.nms", "ops.resize", "ops.grid_sample",
                  "ops.extract", "io.feature_store", "pipeline.extract", "ops.matching",
                  "ops.cuda_match", "localization.pnp", "localization.ransac",
-                 "sfm.map_index", "localization.engine", "utils.synth", "io.colmap_model"):
+                 "sfm.map_index", "localization.engine", "utils.synth", "io.colmap_model",
+                 "ops.gather", "ops.cuda_gather", "ops.cuda_match_ratio", "pipeline.match",
+                 "sfm.pairs", "sfm.twoview", "sfm.tracks", "sfm.triangulation", "sfm.stats",
+                 "sfm.pipeline", "sfm.ba", "sfm.reconstruction"):
         assert f"sfd2_torch.{name}" in mods, name
 
 
@@ -66,7 +69,7 @@ def test_import_builds_nothing():
 def test_kernel_sources_are_in_the_package():
     from sfd2_torch.ops import cuda_build
 
-    assert cuda_build.kernel_sources() == ["match", "stem"]
+    assert cuda_build.kernel_sources() == ["gather", "match", "match_ratio", "stem"]
     for name in cuda_build.kernel_sources():
         text = (cuda_build.CSRC / f"{name}.cu").read_text()
         assert "Replaces: sfd2_tpu/ops/pallas_" in text  # header note

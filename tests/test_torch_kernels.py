@@ -1,4 +1,5 @@
-"""The port's CUDA kernels K1 (fused stem) and K2 (mutual-NN matcher).
+"""The port's CUDA kernels K1 (fused stem), K2 (mutual-NN matcher), K3
+(row gather) and K4 (mutual-NN + ratio matcher).
 
 On a CPU tensor each wrapper returns its plain version and counts no
 launch; that part runs everywhere. The kernels themselves run only on an
@@ -11,17 +12,20 @@ configures JAX):
 
 On the card the plain versions run with TF32 off, so both sides compute
 in float32. K1 is held to rel 1e-4 (float32 sums in another order over
-27 + 576 terms); K2 to ≥ 99.9 % identical matches (only near-ties may
-flip) and scores within 1e-5.
+27 + 576 terms); K2 and K4 to ≥ 99.9 % identical matches (only near-ties
+may flip) and scores within 1e-5; K3 exactly (a gather does no arithmetic).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from sfd2_torch.ops.cuda_gather import gather_rows_cuda
 from sfd2_torch.ops.cuda_match import mutual_nn_match_cuda
+from sfd2_torch.ops.cuda_match_ratio import mutual_nn_ratio_match_cuda
 from sfd2_torch.ops.cuda_stem import StemWeights, fused_stem_cuda
-from sfd2_torch.ops.matching import mutual_nn_match
+from sfd2_torch.ops.gather import gather_rows_plain
+from sfd2_torch.ops.matching import mutual_nn_match, mutual_nn_ratio_match
 from sfd2_torch.ops.stem import fused_stem_apply, repack_stem_params
 
 # The suite runs in several worker processes on a few cores: keep each
@@ -160,5 +164,127 @@ def test_k2_kernel_all_invalid_bank_and_ties(cuda_device):
     m_p, s_p = mutual_nn_match(q, bank, qv, bv)
     torch.cuda.synchronize()
     assert m_k[0, 3].item() == 7 and m_k[0, 70].item() == 7
+    assert (m_k[1] == -1).all() and (s_k[1] == 0).all()
+    assert torch.equal(m_k, m_p)
+
+
+@pytest.mark.cuda
+def test_k2_shape_record_tells_the_layouts_apart(cuda_device):
+    d0, d1, v0, v1 = _pair(np.random.default_rng(5), 2, 64, 64, 32)
+    bank = torch.from_numpy(d1).to(cuda_device)
+    q = torch.from_numpy(d0[:1]).to(cuda_device).expand(2, 64, 32)
+    mutual_nn_match_cuda.shapes.clear()
+    mutual_nn_match_cuda(q, bank)
+    mutual_nn_match_cuda(torch.from_numpy(d0).to(cuda_device), bank)
+    assert mutual_nn_match_cuda.shapes == {(2, 64, 64, 32, True): 1, (2, 64, 64, 32, False): 1}
+
+
+def test_k3_wrapper_on_cpu_returns_plain_result():
+    rng = np.random.default_rng(0)
+    table = torch.from_numpy(rng.normal(size=(50, 9)).astype(np.float32))
+    idx = torch.from_numpy(rng.integers(0, 50, 77).astype(np.int32))
+    before = gather_rows_cuda.launches
+    assert torch.equal(gather_rows_cuda(table, idx), gather_rows_plain(table, idx))
+    assert gather_rows_cuda.launches == before  # the plain version is no launch
+
+
+def test_k3_wrapper_rejects_other_devices():
+    with pytest.raises(ValueError, match="unsupported devices"):
+        gather_rows_cuda(torch.empty((4, 3), device="meta"),
+                         torch.empty(2, dtype=torch.int32, device="meta"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [1, 3, 6, 8, 9, 16])
+@pytest.mark.parametrize("idx_sorted", [False, True])
+@pytest.mark.parametrize("n,m", [(300, 517), (1, 5), (70_000, 140_000), (8, 0)])
+def test_k3_kernel_matches_plain_on_card(cuda_device, c, idx_sorted, n, m):
+    """`idx_sorted`: the index order of the data (BA's point gathers read
+    sorted indices); the kernel reads no hint of it."""
+    rng = np.random.default_rng(c)
+    table = torch.from_numpy(rng.normal(size=(n, c)).astype(np.float32)).to(cuda_device)
+    idx = rng.integers(0, n, m).astype(np.int32)
+    idx = torch.from_numpy(np.sort(idx) if idx_sorted else idx).to(cuda_device)
+    before = gather_rows_cuda.launches
+    got = gather_rows_cuda(table, idx)
+    torch.cuda.synchronize()
+    assert gather_rows_cuda.launches == before + (m > 0)
+    assert torch.equal(got, gather_rows_plain(table, idx))
+
+
+@pytest.mark.cuda
+def test_k3_kernel_rejects_what_it_does_not_take(cuda_device):
+    table = torch.zeros((4, 17), device=cuda_device)
+    idx = torch.zeros(3, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="outside"):
+        gather_rows_cuda(table, idx)
+    with pytest.raises(ValueError, match="dtypes"):
+        gather_rows_cuda(table[:, :3].contiguous(), idx.long())
+    with pytest.raises(ValueError, match="contiguous"):
+        gather_rows_cuda(torch.zeros((3, 4), device=cuda_device).T, idx)
+
+
+def test_k4_wrapper_on_cpu_returns_plain_result():
+    d0, d1, v0, v1 = (torch.from_numpy(a) for a in _pair(np.random.default_rng(1), 2, 64, 80, 32))
+    before = mutual_nn_ratio_match_cuda.launches
+    got = mutual_nn_ratio_match_cuda(d0, d1, 0.9, v0, v1)
+    ref = mutual_nn_ratio_match(d0, d1, 0.9, v0, v1)
+    assert mutual_nn_ratio_match_cuda.launches == before  # the plain version is no launch
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+
+
+def test_k4_wrapper_rejects_other_devices():
+    d = torch.empty((1, 8, 16), device="meta")
+    with pytest.raises(ValueError, match="unsupported devices"):
+        mutual_nn_ratio_match_cuda(d, d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n1,n2,c", [(3, 300, 1000, 128), (2, 5, 37, 64), (1, 129, 65, 4),
+                                       (2, 1000, 300, 256)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("broadcast", [False, True])
+def test_k4_kernel_matches_plain_on_card(cuda_device, b, n1, n2, c, dtype, broadcast):
+    """Ragged N1/N2 around the 128×64 tiles, several row blocks (the column
+    top-2 merge), distinct banks and a stride-0 (broadcast) query."""
+    d0, d1, v0, v1 = _pair(np.random.default_rng(n2), b, n1, n2, c)
+    if broadcast:
+        q = torch.from_numpy(d0[:1]).to(cuda_device, dtype).expand(b, n1, c)
+        qv = torch.from_numpy(v0[:1]).to(cuda_device).expand(b, n1)
+    else:
+        q = torch.from_numpy(d0).to(cuda_device, dtype)
+        qv = torch.from_numpy(v0).to(cuda_device)
+    bank = torch.from_numpy(d1).to(cuda_device, dtype)
+    bv = torch.from_numpy(v1).to(cuda_device)
+    m_k, s_k = mutual_nn_ratio_match_cuda(q, bank, 0.9, qv, bv)
+    m_p, s_p = mutual_nn_ratio_match(q, bank, 0.9, qv, bv)
+    torch.cuda.synchronize()
+    assert (m_k == m_p).float().mean().item() >= 0.999
+    assert (s_k - s_p).abs().max().item() <= 1e-5
+    assert (m_k >= 0).any()
+
+
+@pytest.mark.cuda
+def test_k4_kernel_column_tie_and_invalid_bank(cuda_device):
+    """Rows 3 and 70 identical, their common best column a noisy copy: the
+    column's top-2 is (s, s), so its ratio is ≈ 1 and neither row matches
+    (without the duplicate, row 3 does). An all-invalid bank matches
+    nothing and scores 0."""
+    rng = np.random.default_rng(4)
+    d0, d1, _, _ = _pair(rng, 2, 256, 256, 128, invalid=0.0)
+    d1[0, 7] = d0[0, 3] + 0.1 * _unit(rng, 128)
+    d1[0, 7] /= np.linalg.norm(d1[0, 7])
+    bank = torch.from_numpy(d1).to(cuda_device)
+    bank[1] = 0.0
+    bv = torch.ones((2, 256), dtype=torch.bool, device=cuda_device)
+    bv[1] = False
+    single, _ = mutual_nn_ratio_match_cuda(torch.from_numpy(d0).to(cuda_device), bank, 0.9, None, bv)
+    d0[0, 70] = d0[0, 3]
+    q = torch.from_numpy(d0).to(cuda_device)
+    m_k, s_k = mutual_nn_ratio_match_cuda(q, bank, 0.9, None, bv)
+    m_p, _ = mutual_nn_ratio_match(q, bank, 0.9, None, bv)
+    torch.cuda.synchronize()
+    assert single[0, 3].item() == 7
+    assert m_k[0, 3].item() == -1 and m_k[0, 70].item() == -1
     assert (m_k[1] == -1).all() and (s_k[1] == 0).all()
     assert torch.equal(m_k, m_p)
