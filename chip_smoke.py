@@ -3,9 +3,9 @@
 Run from the repository root:  python3 chip_smoke.py
 
 Builds every CUDA kernel from ``sfd2_torch/csrc`` (K1 fused stem, K2
-mutual-NN matcher, K3 row gather, K4 mutual-NN + ratio matcher), holds
-each against its plain PyTorch version at the main paths' shapes, then
-drives the main paths:
+mutual-NN matcher, K3 row gather, K4 mutual-NN + ratio matcher, K5
+bidirectional argmax, K6 bidirectional top-2), holds each against its plain
+PyTorch version at the main paths' shapes, then drives the main paths:
 - the query path: ``Extractor`` on four 1024² images with the full-width
   ResSegNetV2 (random weights from a seed), and
   ``LocalizationEngine.localize`` on the synthetic corridor scene at the
@@ -14,7 +14,12 @@ drives the main paths:
   covisibility pairs → ``match_pairs`` (K2) → ``triangulate_map``
   (F-RANSAC, tracks, triangulation) → a map bundle adjustment (K3);
 - ``incremental_reconstruction`` from scratch on its first 12 images,
-  matched with the NNR preset (K4), with bundle adjustment (K3).
+  matched with the NNR preset (K4), with bundle adjustment (K3);
+- ``match_pairs`` on the large-bank route: 3 images × 68,992 keypoints ×
+  C=128 (the first bank size the JAX package sends to its tiled kernels),
+  pairs (0,1), (0,2), (1,2), with NNM (K5) and then NNR (K6), held against
+  the plain versions on sampled rows and columns and against the planted
+  true matches.
 Every kernel's launch count and launch-shape record is set to 0 just
 before each path and read just after. A shape a main path launched that
 the kernel phases did not compare is compared afterwards, so every launch
@@ -30,6 +35,7 @@ not available.
 from __future__ import annotations
 
 import collections
+import functools
 import json
 import subprocess
 import sys
@@ -43,16 +49,19 @@ import torch
 from sfd2_torch.geometry.cameras import Camera, canonicalize_params
 from sfd2_torch.geometry.np_pose import camera_center, pose_error
 from sfd2_torch.io.colmap_model import Image, read_model, write_model
-from sfd2_torch.io.feature_store import FeatureStore, MatchStore
+from sfd2_torch.io.feature_store import FeatureStore, ImageFeatures, MatchStore
 from sfd2_torch.localization.engine import LocalizationEngine, LocalizerConfig
 from sfd2_torch.models.sfd2 import ResSegNetV2
 from sfd2_torch.ops import cuda_build
 from sfd2_torch.ops.cuda_gather import gather_rows_cuda
 from sfd2_torch.ops.cuda_match import mutual_nn_match_cuda
 from sfd2_torch.ops.cuda_match_ratio import mutual_nn_ratio_match_cuda
+from sfd2_torch.ops.cuda_nn_argmax import nn_argmax_cuda
+from sfd2_torch.ops.cuda_nn_top2 import nn_top2_cuda
 from sfd2_torch.ops.cuda_stem import StemWeights, fused_stem_cuda
 from sfd2_torch.ops.gather import gather_rows_plain
-from sfd2_torch.ops.matching import mutual_nn_match, mutual_nn_ratio_match
+from sfd2_torch.ops.matching import (mutual_nn_match, mutual_nn_ratio_match, nn_argmax, nn_top2,
+                                    tiled_route)
 from sfd2_torch.ops.stem import fused_stem_apply, repack_stem_params, unpack_stem_params
 from sfd2_torch.pipeline.extract import EXTRACTION_CONFS, ExtractionConfig, Extractor
 from sfd2_torch.pipeline.match import MatchConfig, match_pairs
@@ -82,6 +91,10 @@ KERNELS = {
     "mutual_nn_ratio_match": dict(route="cuda", source="sfd2_torch/csrc/match_ratio.cu",
                                   replaces="sfd2_tpu/ops/pallas_match.py:647",
                                   wrapper=mutual_nn_ratio_match_cuda),
+    "nn_argmax": dict(route="cuda", source="sfd2_torch/csrc/nn_argmax.cu",
+                      replaces="sfd2_tpu/ops/pallas_match.py:126", wrapper=nn_argmax_cuda),
+    "nn_top2": dict(route="cuda", source="sfd2_torch/csrc/nn_top2.cu",
+                    replaces="sfd2_tpu/ops/pallas_match.py:540", wrapper=nn_top2_cuda),
 }
 
 
@@ -391,6 +404,292 @@ def phase_kernel_match_ratio(results):
     results["mutual_nn_ratio_match"] = {
         (16, 4096, 4096, 128, False): ratio_case(16, 4096, 4096, 128, False)}
     ratio_tie_check()
+
+
+# K5 and K6: (wrapper, plain version, output slots that hold indices,
+# bytes written per output row or column).
+NN_KERNELS = {"nn_argmax": (nn_argmax_cuda, nn_argmax, (1, 3), 8),
+              "nn_top2": (nn_top2_cuda, nn_top2, (1, 4), 12)}
+
+
+def compare_nn(got, ref, index_slots, what: str):
+    """K5/K6 outputs against their plain version's: ≥ 99.9 % identical
+    indices (only near-ties may flip: the plain similarity is a cuBLAS
+    product summed in another order), values within 1e-5. Returns (lowest
+    index agreement, largest value error)."""
+    agree, err = 1.0, 0.0
+    for k, (g, r) in enumerate(zip(got, ref)):
+        if k in index_slots:
+            agree = min(agree, (g == r).float().mean().item())
+        else:
+            err = max(err, (g - r).abs().max().item())
+    require(agree >= 0.999, f"{what}: indices agree on {agree:.5f} < 0.999")
+    require(err <= 1e-5, f"{what}: value err {err} > 1e-5")
+    return agree, err
+
+
+def nn_case(name: str, b: int, n1: int, n2: int, c: int, broadcast: bool) -> dict:
+    """K5 or K6 against its plain version at one launch shape and layout, in
+    f32 and bf16, with ~10 % invalid rows and columns."""
+    wrapper, plain, index_slots, out_bytes = NN_KERNELS[name]
+    d0, bank, v0, v1, _ = pair_case(b, n1, n2, c, broadcast, SEED + 8)
+    res = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        a0, a1 = d0.to(dtype), bank.to(dtype)
+        got, ref = wrapper(a0, a1, v0, v1), plain(a0, a1, v0, v1)
+        torch.cuda.synchronize()
+        what = f"{name} at {[b, n1, n2, c, broadcast]} {dtype}"
+        res[dtype] = compare_nn(got, ref, index_slots, what)
+
+    def library():  # the product and its reductions both ways, biases left out
+        s = torch.bmm(d0, bank.transpose(1, 2))
+        if name == "nn_argmax":
+            return s.max(-1), s.max(-2)
+        return s.topk(2, dim=-1), s.topk(2, dim=-2)
+
+    flops = 2 * b * n1 * n2 * c
+    nbytes = n1 * (4 * c + 1) * (1 if broadcast else b) + b * n2 * (4 * c + 1) \
+        + b * (n1 + n2) * out_bytes  # f32 descriptors, bool masks, outputs
+    bound_ms, bound_by = bound(flops, nbytes)
+    (agree, err), (agree16, err16) = res[torch.float32], res[torch.bfloat16]
+    row = dict(
+        shape=[b, n1, n2, c], broadcast=broadcast, agree=agree, max_abs_err=err,
+        bf16_agree=agree16, bf16_max_abs_err=err16,
+        ms=cuda_ms(lambda: wrapper(d0, bank, v0, v1)),
+        bf16_ms=cuda_ms(lambda: wrapper(d0.to(torch.bfloat16), bank.to(torch.bfloat16), v0, v1)),
+        plain_ms=cuda_ms(lambda: plain(d0, bank, v0, v1)),
+        library_ms=cuda_ms(library), gflop=flops / 1e9, mbytes=nbytes / 1e6,
+        bound_ms=bound_ms, bound_by=bound_by)
+    emit(f"kernel_{name}", **row)
+    return row
+
+
+def nn_tie_check(name: str, n: int = 4096, c: int = 128):
+    """Exact ties in other tiles and row blocks: query rows 3 and 2000
+    identical with bank column 7 their copy (a column tie), bank columns 9
+    and 3000 identical with query row 40 their copy (a row tie). The lowest
+    index wins both ways, a tied max is also the second value (K6), and the
+    kernel equals its plain version there."""
+    wrapper, plain, index_slots, _ = NN_KERNELS[name]
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    q = unit(torch.randn((2, n, c), generator=gen, device=dev))
+    bank = unit(torch.randn((2, n, c), generator=gen, device=dev))
+    q[0, 2000] = q[0, 3]
+    bank[0, 7] = q[0, 3]
+    bank[0, 3000] = bank[0, 9]
+    q[0, 40] = bank[0, 9]
+    out = wrapper(q, bank)
+    ref = plain(q, bank)
+    torch.cuda.synchronize()
+    nn12, nn21 = out[index_slots[0]], out[index_slots[1]]
+    require(nn12[0, 3].item() == 7 and nn12[0, 2000].item() == 7 and nn21[0, 7].item() == 3,
+            f"{name}: the column tie did not go to the lowest row")
+    require(nn12[0, 40].item() == 9 and nn21[0, 9].item() == 40 and nn21[0, 3000].item() == 40,
+            f"{name}: the row tie did not go to the lowest column")
+    if name == "nn_top2":
+        require(out[2][0, 40].item() == out[0][0, 40].item()
+                and out[5][0, 7].item() == out[3][0, 7].item(),
+                "nn_top2: a max reached twice must also be the second value")
+    compare_nn(out, ref, index_slots, f"{name} tie case")
+    tied_rows, tied_cols = [3, 40, 2000], [7, 9, 3000]
+    require(torch.equal(nn12[0, tied_rows], ref[index_slots[0]][0, tied_rows])
+            and torch.equal(nn21[0, tied_cols], ref[index_slots[1]][0, tied_cols]),
+            f"{name}: the plain version resolves the planted ties otherwise")
+    emit(f"kernel_{name}_tie", column_tie=[nn12[0, 3].item(), nn12[0, 2000].item(),
+                                           nn21[0, 7].item()],
+         row_tie=[nn12[0, 40].item(), nn21[0, 9].item(), nn21[0, 3000].item()])
+
+
+# [1, 4096] is the public op at the JAX package's default 1024-wide tiles;
+# 16 distinct banks as DB-pair batches; 8 banks against one broadcast query
+# as the engine matches; a ragged shape; D2-Net's width C=512.
+NN_SHAPES = [((1, 4096, 4096, 128), False), ((16, 4096, 4096, 128), False),
+             ((8, 4096, 4096, 128), True), ((2, 3000, 2500, 128), False),
+             ((1, 2048, 2048, 512), False)]
+
+
+def phase_kernel_nn(results, name: str):
+    results[name] = {(*s, bc): nn_case(name, *s, bc) for s, bc in NN_SHAPES}
+    nn_tie_check(name)
+
+
+LARGE_N, LARGE_C = 68_992, 128  # the first tiled bank size at C=128 (ops/matching.py)
+SAMPLES = 2048
+
+
+def large_bank_scene(n: int, c: int, seed: int):
+    """A dict-backed store of 3 images × n keypoints × C: image 0 random unit
+    descriptors; images 1 and 2 each hold noisy (σ = 0.05 per component,
+    renormalised), permuted copies of a random half of image 0's rows, and
+    fresh random rows elsewhere. Returns (store, names, to_image) with
+    to_image[k][i] the row of image k that copies image 0's row i, or −1."""
+    rng = np.random.default_rng(seed)
+
+    def unit_np(a):
+        return (a / np.linalg.norm(a, axis=1, keepdims=True)).astype(np.float32)
+
+    desc = [unit_np(rng.standard_normal((n, c), np.float32))]
+    to_image = [np.arange(n)]
+    for _ in range(2):
+        src = rng.choice(n, n // 2, replace=False)
+        pos = rng.permutation(n)
+        d = unit_np(rng.standard_normal((n, c), np.float32))
+        d[pos[:len(src)]] = unit_np(desc[0][src] + 0.05 * rng.standard_normal((len(src), c),
+                                                                              np.float32))
+        inv = np.full(n, -1, np.int64)
+        inv[src] = pos[:len(src)]
+        desc.append(d)
+        to_image.append(inv)
+    store = FeatureStore()
+    names = [f"large/{k}.jpg" for k in range(3)]
+    for name, d in zip(names, desc):
+        kp = rng.uniform(0, 1600, (n, 2)).astype(np.float32)
+        store.write(name, ImageFeatures(kp, d, rng.random(n).astype(np.float32), None))
+    return store, names, to_image
+
+
+def chunked_plain(plain, d0, d1, rows: int = 8192):
+    """The plain version of K5/K6 over row stripes of desc0 (the whole
+    [N1, N2] similarity does not fit the card): rows concatenated; columns
+    merged across stripes in ascending order with the TPU kernel's rule —
+    strictly greater takes the argmax, seconds by the multiset rule."""
+    n1 = d0.shape[1]
+    outs = [plain(d0[:, i: i + rows], d1) for i in range(0, n1, rows)]
+    n_row = len(outs[0]) // 2  # row outputs come first, then as many column outputs
+    row_part = [torch.cat([o[k] for o in outs], dim=1) for k in range(n_row)]
+    col = list(outs[0][n_row:])
+    for t, o in enumerate(outs[1:], start=1):
+        c1, ca = o[n_row], o[n_row + 1] + t * rows
+        take = c1 > col[0]
+        if len(col) == 3:
+            col[2] = torch.maximum(torch.minimum(col[0], c1), torch.maximum(col[2], o[n_row + 2]))
+        col[1] = torch.where(take, ca, col[1])
+        col[0] = torch.maximum(col[0], c1)
+    return (*row_part, *col)
+
+
+def sampled_route(mode: str, d0, d1, rows):
+    """The large-bank route's matches for `rows` of one pair (all valid),
+    from the plain versions alone: the rows' top-2 over every column, the
+    top-2 over every row of the columns they picked, the back-pointer and,
+    for NNR, the symmetric ratio test."""
+    def ratio(a, b):
+        dist = lambda v: torch.sqrt(torch.clamp(2.0 - 2.0 * v, min=0.0))  # noqa: E731
+        return dist(a) / (dist(b) + 1e-8)
+
+    m1, nn12, m1b, _, _, _ = nn_top2(d0[rows][None], d1[None])
+    cols = nn12[0].long()
+    _, _, _, c1, nn21, c1b = nn_top2(d0[None], d1[cols][None])
+    ok = nn21[0].long() == rows
+    if mode == "NNR":
+        ok &= (ratio(m1[0], m1b[0]) <= RATIO) & (ratio(c1[0], c1b[0]) <= RATIO)
+    return torch.where(ok, nn12[0], -1)
+
+
+def check_match_large(mode: str, name: str, matches, names, desc, to_image, rows, cols) -> dict:
+    """Checks of one ``match_pairs`` run on the large-bank scene, on any
+    device: for every pair, the kernel's outputs against the plain version
+    on sampled rows (desc0[rows] × desc1) and columns (desc0 × desc1[cols]),
+    the written matches against the plain route on the sampled rows, and
+    the share of planted true matches recovered (≥ 0.95 for NNM); then pair
+    (0, 1) in full against the plain version over row stripes."""
+    wrapper, plain, index_slots, _ = NN_KERNELS[name]
+    dev = desc[0].device
+    agree, err, route_agree, recovered = 1.0, 0.0, 1.0, []
+    for a, b in ((0, 1), (0, 2), (1, 2)):
+        d0, d1 = desc[a][None], desc[b][None]
+        got = wrapper(d0, d1)
+        ref_r, ref_c = plain(d0[:, rows], d1), plain(d0, d1[:, cols])
+        n_row = len(got) // 2  # row outputs, then column outputs; index at 1 in each
+        what = f"match_large {mode} pair {(a, b)}"
+        ag_r, er_r = compare_nn([g[:, rows] for g in got[:n_row]], ref_r[:n_row], (1,),
+                                what + " rows")
+        ag_c, er_c = compare_nn([g[:, cols] for g in got[n_row:]], ref_c[n_row:], (1,),
+                                what + " columns")
+        m = torch.from_numpy(matches.read(names[a], names[b])[0]).to(dev)
+        r_agree = (m[rows] == sampled_route(mode, desc[a], desc[b], rows)).float().mean().item()
+        require(r_agree >= 0.999, f"{what}: matches agree with the plain route on "
+                                  f"{r_agree:.5f} < 0.999 of sampled rows")
+        both = np.nonzero((to_image[a] >= 0) & (to_image[b] >= 0))[0]
+        ia = torch.from_numpy(to_image[a][both]).to(dev)
+        ib = torch.from_numpy(to_image[b][both]).to(dev)
+        recovered.append((m[ia] == ib).float().mean().item())
+        agree, err = min(agree, ag_r, ag_c), max(err, er_r, er_c)
+        route_agree = min(route_agree, r_agree)
+    if mode == "NNM":
+        require(min(recovered) >= 0.95, f"match_large NNM: recovered {recovered} < 0.95")
+    d0, d1 = desc[0][None], desc[1][None]
+    full_agree, full_err = compare_nn(wrapper(d0, d1), chunked_plain(plain, d0, d1),
+                                      index_slots, f"match_large {mode} pair (0, 1) in full")
+    return dict(recovered=recovered, sampled_agree=agree, sampled_max_abs_err=err,
+                route_agree=route_agree, full_pair_agree=full_agree,
+                full_pair_max_abs_err=full_err)
+
+
+def phase_match_large(results):
+    """The slice's route at full width: ``match_pairs`` on 3 images × 68,992
+    keypoints × C=128, one pair per launch (as hloc matches pairs), NNM
+    then NNR. Each run is the main path with the counts set to 0 just
+    before it and read just after; then its checks, a traced rerun, and the
+    kernel, its plain version, the library yardstick and K2/K4 timed on
+    pair (0, 1)."""
+    require(tiled_route(LARGE_N, LARGE_C) and not tiled_route(LARGE_N - 128, LARGE_C),
+            "match_large: 68,992 is not the first tiled bank size at C=128")
+    t0 = time.perf_counter()
+    store, names, to_image = large_bank_scene(LARGE_N, LARGE_C, SEED + 10)
+    out = dict(images=[3, LARGE_N, LARGE_C], scene_s=round(time.perf_counter() - t0, 3))
+    pairs = [(names[0], names[1]), (names[0], names[2]), (names[1], names[2])]
+    dev = torch.device("cuda")
+    desc = [torch.from_numpy(np.ascontiguousarray(store.read(n).descriptors)).to(dev)
+            for n in names]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    rows = torch.randperm(LARGE_N, generator=gen, device=dev)[:SAMPLES]
+    cols = torch.randperm(LARGE_N, generator=gen, device=dev)[:SAMPLES]
+    key = (1, LARGE_N, LARGE_N, LARGE_C, False)
+    d0, d1 = desc[0][None], desc[1][None]
+    for mode, name, same_pair in (
+            ("NNM", "nn_argmax", lambda: mutual_nn_match_cuda(d0, d1)),
+            ("NNR", "nn_top2", lambda: mutual_nn_ratio_match_cuda(d0, d1, RATIO))):
+        wrapper, plain, _, out_bytes = NN_KERNELS[name]
+        cfg = MatchConfig(matcher=mode, max_keypoints=LARGE_N, batch_size=1)
+        matches = MatchStore()
+        reset_launches()
+        t0 = time.perf_counter()
+        match_pairs(store, pairs, matches, cfg, device="cuda")
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = read_launches()
+        results["main_path"].append(counts)
+        launched = {k: sum(v.values()) for k, v in counts.items() if v}
+        require(launched == {name: 3}, f"match_large {mode}: launched {launched}, "
+                                       f"expected only {name}, once per pair")
+        checks = check_match_large(mode, name, matches, names, desc, to_image, rows, cols)
+
+        def library():  # the product and its reductions both ways, biases left out
+            s = torch.bmm(d0, d1.transpose(1, 2))
+            if name == "nn_argmax":
+                return s.max(-1), s.max(-2)
+            return s.topk(2, dim=-1), s.topk(2, dim=-2)
+
+        flops = 2 * LARGE_N * LARGE_N * LARGE_C
+        nbytes = 2 * LARGE_N * (4 * LARGE_C + 1) + 2 * LARGE_N * out_bytes
+        bound_ms, bound_by = bound(flops, nbytes)
+        row = dict(shape=list(key[:4]), broadcast=False,
+                   agree=min(checks["sampled_agree"], checks["full_pair_agree"]),
+                   max_abs_err=max(checks["sampled_max_abs_err"], checks["full_pair_max_abs_err"]),
+                   ms=cuda_ms(lambda: wrapper(d0, d1), warmup=1, iters=5),
+                   plain_ms=cuda_ms(lambda: chunked_plain(plain, d0, d1), warmup=1, iters=3),
+                   library_ms=cuda_ms(library, warmup=1, iters=3), gflop=flops / 1e9,
+                   mbytes=nbytes / 1e6, bound_ms=bound_ms, bound_by=bound_by,
+                   same_pair_k2_k4_ms=cuda_ms(same_pair, warmup=1, iters=5))
+        torch.cuda.empty_cache()
+        results[name][key] = row
+        traced = device_profile(lambda: match_pairs(store, pairs, MatchStore(), cfg,
+                                                    device="cuda"))
+        out[mode] = dict(match_pairs_s=round(seconds, 3), launches=launched, **checks,
+                         kernel=row, profile=traced)
+    emit("match_large", **out)
 
 
 def gather_case(n: int, m: int, c: int, sorted_idx: bool = False) -> dict:
@@ -889,12 +1188,16 @@ def main():
     phase_kernel_match(results)
     phase_kernel_gather(results)
     phase_kernel_match_ratio(results)
-    # The main paths: extract, localize, map building and reconstruction,
-    # each with the counts set to 0 just before it and read just after.
+    phase_kernel_nn(results, "nn_argmax")
+    phase_kernel_nn(results, "nn_top2")
+    # The main paths: extract, localize, map building, reconstruction and
+    # large-bank matching, each with the counts set to 0 just before it and
+    # read just after.
     phase_extract(results, state)
     store, scene = phase_localize(results)
     phase_map_build(results, store, scene)
     phase_reconstruct(results, store, scene)
+    phase_match_large(results)
 
     shapes = {name: sum((run[name] for run in results["main_path"]), collections.Counter())
               for name in KERNELS}
@@ -902,7 +1205,9 @@ def main():
         require(sum(shapes[name].values()) > 0, f"{name}: not launched on the main path")
     # Every shape the main path launched is held against the plain version.
     cases = {"fused_stem": stem_case, "mutual_nn_match": match_case,
-             "gather_rows": gather_case, "mutual_nn_ratio_match": ratio_case}
+             "gather_rows": gather_case, "mutual_nn_ratio_match": ratio_case,
+             "nn_argmax": functools.partial(nn_case, "nn_argmax"),
+             "nn_top2": functools.partial(nn_case, "nn_top2")}
     for name, counts in shapes.items():
         for key in counts:
             if key not in results[name]:

@@ -27,22 +27,13 @@
 // The epilogue is a plain indexed load of cmax at nn12. Ragged N1/N2 are
 // masked in-kernel. bf16 descriptors are widened to f32 when staged.
 // No tensor cores, TMA or double buffering yet. The tiling, staging and FMA
-// tile are shared with K4 in csrc/match_common.cuh.
+// tile are shared with K4, K5 and K6 in csrc/match_common.cuh.
 #include <math.h>
 #include <stdint.h>
 
 #include "match_common.cuh"
 
 namespace {
-
-__device__ __forceinline__ int enc(float f) {
-  const int i = __float_as_int(f);
-  return i >= 0 ? i : i ^ 0x7fffffff;
-}
-
-__device__ __forceinline__ float dec(int i) {
-  return __int_as_float(i >= 0 ? i : i ^ 0x7fffffff);
-}
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS, 2)
@@ -84,12 +75,8 @@ mutual_kernel(const T* __restrict__ d0, const T* __restrict__ d1,
   }
 
   for (int j0 = 0; j0 < N2; j0 += BN) {
-    __syncthreads();  // previous tile's d_s / red reads are done
-    stage(d_s, db, j0, BN, N2, C);
-    __syncthreads();
-
     float acc[8][4];
-    dot_tile(acc, q_s, d_s, ty, tx, C);
+    sim_tile(acc, q_s, d_s, q, db, row0, N1, j0, N2, C, C, ty, tx);
 
     float cm[4];
 #pragma unroll

@@ -92,12 +92,8 @@ top2_kernel(const T* __restrict__ d0, const T* __restrict__ d1, const uint8_t* _
   }
 
   for (int j0 = 0; j0 < N2; j0 += BN) {
-    __syncthreads();  // previous tile's d_s / red reads are done
-    stage(d_s, db, j0, BN, N2, C);
-    __syncthreads();
-
     float acc[8][4];
-    dot_tile(acc, q_s, d_s, ty, tx, C);
+    sim_tile(acc, q_s, d_s, q, db, row0, N1, j0, N2, C, C, ty, tx);
 
 #pragma unroll
     for (int c = 0; c < 4; ++c) {

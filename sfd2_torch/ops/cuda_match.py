@@ -41,10 +41,12 @@ def _check_rows(t: torch.Tensor, name: str, align: int, what: str):
         raise ValueError(f"{what}: {name} is not {align}-byte aligned")
 
 
-def check_match_args(desc0: torch.Tensor, desc1: torch.Tensor, valid0, valid1, what: str):
-    """Validate the arguments of a matcher kernel (K2, K4) on CUDA tensors;
-    returns (b, n1, n2, c, valid0, valid1) with absent masks made all-valid
-    (valid0 broadcast with batch stride 0)."""
+def check_match_args(desc0: torch.Tensor, desc1: torch.Tensor, valid0, valid1, what: str,
+                     max_c: int | None = 256):
+    """Validate the arguments of a matcher kernel (K2, K4, K5, K6) on CUDA
+    tensors: C % 4 == 0 and C <= max_c (None: any C, for kernels that stage
+    C in chunks). Returns (b, n1, n2, c, valid0, valid1) with absent masks
+    made all-valid (valid0 broadcast with batch stride 0)."""
     if desc0.device.type != "cuda" or desc1.device != desc0.device:
         raise ValueError(f"{what}: unsupported devices {desc0.device}, {desc1.device}")
     if desc0.ndim != 3 or desc1.ndim != 3:
@@ -55,7 +57,7 @@ def check_match_args(desc0: torch.Tensor, desc1: torch.Tensor, valid0, valid1, w
         raise ValueError(f"{what}: shapes {tuple(desc0.shape)} vs {tuple(desc1.shape)}")
     if desc0.dtype != desc1.dtype or desc0.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"{what}: unsupported dtypes {desc0.dtype}, {desc1.dtype}")
-    if c % 4 or not 0 < c <= 256 or b == 0 or n1 == 0 or n2 == 0:
+    if c % 4 or c == 0 or (max_c is not None and c > max_c) or b == 0 or n1 == 0 or n2 == 0:
         raise ValueError(f"{what}: unsupported shape B={b} N1={n1} N2={n2} C={c}")
     dev = desc0.device
     if valid0 is None:

@@ -1,5 +1,5 @@
-"""Descriptor matching (plain PyTorch; the CUDA kernels are ``cuda_match.py``
-and ``cuda_match_ratio.py``).
+"""Descriptor matching (plain PyTorch; the CUDA kernels are ``cuda_match.py``,
+``cuda_match_ratio.py``, ``cuda_nn_argmax.py`` and ``cuda_nn_top2.py``).
 
 Port of ``sfd2_tpu/ops/matching.py``: NNM mutual-NN (``it_loc/matcher.py:
 122``), NNR mutual-NN + symmetric Lowe ratio (``:165``), one-way NN and
@@ -15,6 +15,13 @@ exact tie between rows to every tying row (the JAX package's XLA path
 grants it to the lowest row only; the two agree wherever no tie exists).
 ``mutual_nn_ratio_match`` is the plain version of kernel K4 and carries
 its contract the same way.
+``nn_argmax`` and ``nn_top2`` are the plain versions of kernels K5 and K6,
+the bidirectional reductions of the large-bank route: where the JAX
+package's full-width kernels would not fit the TPU's VMEM (``tiled_route``),
+``batch_matcher`` sends NNM to ``mutual_nn_match_tiled`` (K5) and NNR to
+``mutual_nn_ratio_match_tiled`` (K6), which test mutuality by back-pointer
+``nn21[nn12[i]] == i`` and so grant an exact tie between rows to the lowest
+row only, as the JAX package does on that route.
 ``onn`` and ``nnml`` have no TPU kernel in the JAX package, so the plain
 functions here are their real implementation.
 """
@@ -97,6 +104,101 @@ def mutual_nn_ratio_match(desc0, desc1, ratio: float = 0.9, valid0=None, valid1=
     return matches0, scores0
 
 
+def similarity_topk(sim, k: int = 2):
+    """Top-k similarities and indices along the last axis."""
+    return torch.topk(sim, k, dim=-1)
+
+
+def nn_argmax(desc0, desc1, valid0=None, valid1=None):
+    """Bidirectional nearest neighbours with the K5 contract:
+    (max12 [..., N1] f32, nn12 [..., N1] int32, max21 [..., N2] f32,
+    nn21 [..., N2] int32).
+
+    Validity enters as additive −1e9 biases: the row reduction runs over
+    ``s + col_bias`` and the column reduction over ``s + row_bias`` (each
+    reduction sees only the bias of the axis it reduces). On an exact tie the
+    argmax is the lowest index, both ways (``pallas_match.py:62-122``: a
+    first-occurrence argmax inside a tile and a strictly-greater merge across
+    tiles). The TPU kernel starts its accumulators at −2e9, below any biased
+    value, so they never show in the result."""
+    s = _similarity(desc0, desc1)
+    s_row = s if valid1 is None else s + _bias(valid1)[..., None, :]
+    s_col = s if valid0 is None else s + _bias(valid0)[..., :, None]
+    max12, nn12 = torch.max(s_row, dim=-1)  # first occurrence of the max
+    max21, nn21 = torch.max(s_col, dim=-2)
+    return max12, nn12.to(torch.int32), max21, nn21.to(torch.int32)
+
+
+def _top2(s, dim):
+    """(max, first-occurrence argmax, multiset second) along `dim`: the
+    second is the max with only the argmax entry set to −2e9, so a max
+    reached twice gives second == max."""
+    m1, a1 = torch.max(s, dim=dim)
+    m2 = s.scatter(dim, a1.unsqueeze(dim), 2 * _NEG).amax(dim)
+    return m1, a1.to(torch.int32), m2
+
+
+def nn_top2(desc0, desc1, valid0=None, valid1=None):
+    """Bidirectional top-2 with the K6 contract: (max12, nn12, max12_2nd,
+    max21, nn21, max21_2nd) with the biases and the lowest-index argmax of
+    ``nn_argmax``, and multiset second values (``pallas_match.py:475-530``);
+    a reduced axis of length 1 gives a second value of −2e9."""
+    s = _similarity(desc0, desc1)
+    s_row = s if valid1 is None else s + _bias(valid1)[..., None, :]
+    s_col = s if valid0 is None else s + _bias(valid0)[..., :, None]
+    return (*_top2(s_row, -1), *_top2(s_col, -2))
+
+
+def mutual_nn_match_tiled(desc0, desc1, valid0=None, valid1=None):
+    """NNM on the large-bank route (``pallas_match.py:385-396``): K5's
+    bidirectional argmax, then the back-pointer check ``nn21[nn12[i]] == i``.
+    Scores are ``max12``, the row max over ``s + col_bias``. desc [B, N, C]."""
+    from sfd2_torch.ops.cuda_nn_argmax import nn_argmax_cuda
+
+    max12, nn12, _, nn21 = nn_argmax_cuda(desc0, desc1, valid0, valid1)
+    ids = torch.arange(nn12.shape[-1], dtype=nn12.dtype, device=nn12.device)
+    alive = max12 > _NEG / 2
+    ok = (ids == torch.gather(nn21, -1, nn12.long())) & alive
+    if valid0 is not None:
+        ok = ok & valid0
+    return torch.where(ok, nn12, -1).to(torch.int32), torch.where(alive, max12, 0.0)
+
+
+def mutual_nn_ratio_match_tiled(desc0, desc1, ratio: float = 0.9, valid0=None, valid1=None):
+    """NNR on the large-bank route (``pallas_match.py:672-692``): K6's
+    bidirectional top-2, the back-pointer check, and the symmetric ratio
+    test, with ``ratios21`` built over all columns and gathered at nn12."""
+    from sfd2_torch.ops.cuda_nn_top2 import nn_top2_cuda
+
+    m1, nn12, m1b, c1, nn21, c1b = nn_top2_cuda(desc0, desc1, valid0, valid1)
+    ratios12 = _dist(m1) / (_dist(m1b) + 1e-8)
+    ratios21 = _dist(c1) / (_dist(c1b) + 1e-8)
+    ids = torch.arange(nn12.shape[-1], dtype=nn12.dtype, device=nn12.device)
+    idx = nn12.long()
+    alive = m1 > _NEG / 2
+    ok = ((ids == torch.gather(nn21, -1, idx)) & (ratios12 <= ratio)
+          & (torch.gather(ratios21, -1, idx) <= ratio) & alive)
+    if valid0 is not None:
+        ok = ok & valid0
+    return torch.where(ok, nn12, -1).to(torch.int32), torch.where(alive, m1, 0.0)
+
+
+# Copied from sfd2_tpu/ops/pallas_match.py:337-354 (``_FULLWIDTH_VMEM_BYTES``,
+# ``_fullwidth_block_m``): the JAX package's full-width matcher kernels keep
+# the whole bank, a row stripe and reduction temporaries in 40 MiB of VMEM
+# and hand larger banks to the tiled kernels. ``batch_matcher`` there passes
+# only multiples of 128, so its smallest stripe (8 rows) decides.
+_FULLWIDTH_BYTES = 40 << 20
+
+
+def tiled_route(n2: int, c: int) -> bool:
+    """True where the JAX package's matchers take the tiled large-bank
+    route for a bank of n2 descriptors of width c (n1, n2 multiples of
+    128): 68,992 rows at C=128, 37,504 at 256, 19,584 at 512 and above."""
+    bm = 8
+    return 4 * (n2 * c + 3 * bm * n2 + 2 * bm * c) > _FULLWIDTH_BYTES
+
+
 def one_way_match(desc0, desc1, valid0=None, valid1=None):
     """One-directional NN matching (reference ONN conf)."""
     sim = _masked_similarity(desc0, desc1, valid0, valid1)
@@ -130,13 +232,20 @@ def batch_matcher(mode: str = "nnm", ratio: float = 0.9):
     """The batched matcher for `mode`: (desc0 [B,K,C], desc1 [B,K',C],
     valid0, valid1[, labels0, labels1]) → (matches0, scores0).
 
-    'nnm' goes to kernel K2 and 'nnr' to kernel K4 on CUDA tensors for any
-    shape (their plain versions on CPU tensors). 'onn' and 'nnml' are plain
-    PyTorch on every device."""
+    'nnm' and 'nnr' take the large-bank route where the JAX package does
+    (K and K' multiples of 128 and ``tiled_route(K', C)``): kernel K5 for
+    'nnm', K6 for 'nnr'. Everywhere else, ragged sizes included, 'nnm' goes
+    to kernel K2 and 'nnr' to K4. Each runs its plain version on CPU
+    tensors. 'onn' and 'nnml' are plain PyTorch on every device."""
     if mode not in ("nnm", "nnr", "onn", "nnml"):
         raise ValueError(mode)
 
     def run(d0, d1, v0, v1, l0=None, l1=None):
+        n1, (n2, c) = d0.shape[-2], d1.shape[-2:]
+        if mode in ("nnm", "nnr") and n1 % 128 == 0 and n2 % 128 == 0 and tiled_route(n2, c):
+            if mode == "nnm":
+                return mutual_nn_match_tiled(d0, d1, v0, v1)
+            return mutual_nn_ratio_match_tiled(d0, d1, ratio, v0, v1)
         if mode == "nnm":
             from sfd2_torch.ops.cuda_match import mutual_nn_match_cuda
 

@@ -40,7 +40,9 @@ def test_port_lists_the_slice_modules():
                  "sfm.map_index", "localization.engine", "utils.synth", "io.colmap_model",
                  "ops.gather", "ops.cuda_gather", "ops.cuda_match_ratio", "pipeline.match",
                  "sfm.pairs", "sfm.twoview", "sfm.tracks", "sfm.triangulation", "sfm.stats",
-                 "sfm.pipeline", "sfm.ba", "sfm.reconstruction"):
+                 "sfm.pipeline", "sfm.ba", "sfm.reconstruction", "ops.cuda_nn_argmax",
+                 "ops.cuda_nn_top2", "io.pairs", "io.database", "cli.pairs_from",
+                 "cli.match_features", "cli.triangulation", "cli.reconstruction"):
         assert f"sfd2_torch.{name}" in mods, name
 
 
@@ -69,7 +71,8 @@ def test_import_builds_nothing():
 def test_kernel_sources_are_in_the_package():
     from sfd2_torch.ops import cuda_build
 
-    assert cuda_build.kernel_sources() == ["gather", "match", "match_ratio", "stem"]
+    assert cuda_build.kernel_sources() == ["gather", "match", "match_ratio", "nn_argmax",
+                                           "nn_top2", "stem"]
     for name in cuda_build.kernel_sources():
         text = (cuda_build.CSRC / f"{name}.cu").read_text()
         assert "Replaces: sfd2_tpu/ops/pallas_" in text  # header note

@@ -1,5 +1,6 @@
 """The port's CUDA kernels K1 (fused stem), K2 (mutual-NN matcher), K3
-(row gather) and K4 (mutual-NN + ratio matcher).
+(row gather), K4 (mutual-NN + ratio matcher), K5 (bidirectional argmax) and
+K6 (bidirectional top-2).
 
 On a CPU tensor each wrapper returns its plain version and counts no
 launch; that part runs everywhere. The kernels themselves run only on an
@@ -13,7 +14,9 @@ configures JAX):
 On the card the plain versions run with TF32 off, so both sides compute
 in float32. K1 is held to rel 1e-4 (float32 sums in another order over
 27 + 576 terms); K2 and K4 to ≥ 99.9 % identical matches (only near-ties
-may flip) and scores within 1e-5; K3 exactly (a gather does no arithmetic).
+may flip) and scores within 1e-5; K3 exactly (a gather does no arithmetic);
+K5 and K6 to ≥ 99.9 % identical indices and values within 1e-5, with exact
+ties resolved by their contract (lowest index, multiset second value).
 """
 
 import numpy as np
@@ -23,9 +26,11 @@ import torch
 from sfd2_torch.ops.cuda_gather import gather_rows_cuda
 from sfd2_torch.ops.cuda_match import mutual_nn_match_cuda
 from sfd2_torch.ops.cuda_match_ratio import mutual_nn_ratio_match_cuda
+from sfd2_torch.ops.cuda_nn_argmax import nn_argmax_cuda
+from sfd2_torch.ops.cuda_nn_top2 import nn_top2_cuda
 from sfd2_torch.ops.cuda_stem import StemWeights, fused_stem_cuda
 from sfd2_torch.ops.gather import gather_rows_plain
-from sfd2_torch.ops.matching import mutual_nn_match, mutual_nn_ratio_match
+from sfd2_torch.ops.matching import mutual_nn_match, mutual_nn_ratio_match, nn_argmax, nn_top2
 from sfd2_torch.ops.stem import fused_stem_apply, repack_stem_params
 
 # The suite runs in several worker processes on a few cores: keep each
@@ -288,3 +293,93 @@ def test_k4_kernel_column_tie_and_invalid_bank(cuda_device):
     assert m_k[0, 3].item() == -1 and m_k[0, 70].item() == -1
     assert (m_k[1] == -1).all() and (s_k[1] == 0).all()
     assert torch.equal(m_k, m_p)
+
+
+NN_KERNELS = {"k5": (nn_argmax_cuda, nn_argmax, (1, 3)), "k6": (nn_top2_cuda, nn_top2, (1, 4))}
+
+
+@pytest.mark.parametrize("kernel", sorted(NN_KERNELS))
+def test_k5_k6_wrappers_on_cpu_return_plain_result(kernel):
+    wrapper, plain, _ = NN_KERNELS[kernel]
+    d0, d1, v0, v1 = (torch.from_numpy(a) for a in _pair(np.random.default_rng(2), 2, 64, 80, 32))
+    before = wrapper.launches
+    got, ref = wrapper(d0, d1, v0, v1), plain(d0, d1, v0, v1)
+    assert wrapper.launches == before  # the plain version is no launch
+    assert all(torch.equal(g, r) for g, r in zip(got, ref))
+
+
+@pytest.mark.parametrize("kernel", sorted(NN_KERNELS))
+def test_k5_k6_wrappers_reject_other_devices(kernel):
+    d = torch.empty((1, 8, 16), device="meta")
+    with pytest.raises(ValueError, match="unsupported devices"):
+        NN_KERNELS[kernel][0](d, d)
+
+
+def _agree(got, ref, index_slots, what):
+    for k, (g, r) in enumerate(zip(got, ref)):
+        if k in index_slots:
+            assert g.dtype == torch.int32
+            agree = (g == r).float().mean().item()
+            assert agree >= 0.999, (what, k, agree)
+        else:
+            err = (g - r).abs().max().item()
+            assert err <= 1e-5, (what, k, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", sorted(NN_KERNELS))
+@pytest.mark.parametrize("b,n1,n2,c", [(3, 300, 1000, 128), (2, 5, 37, 64), (1, 129, 65, 4),
+                                       (2, 1000, 300, 512), (1, 640, 700, 132)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("broadcast", [False, True])
+def test_k5_k6_kernels_match_plain_on_card(cuda_device, kernel, b, n1, n2, c, dtype, broadcast):
+    """Ragged N1/N2 around the 128×64 tiles, C staged in one chunk (≤ 128)
+    or several (132, 512), distinct banks and a stride-0 (broadcast) query."""
+    wrapper, plain, index_slots = NN_KERNELS[kernel]
+    d0, d1, v0, v1 = _pair(np.random.default_rng(n1 + c), b, n1, n2, c)
+    if broadcast:
+        q = torch.from_numpy(d0[:1]).to(cuda_device, dtype).expand(b, n1, c)
+        qv = torch.from_numpy(v0[:1]).to(cuda_device).expand(b, n1)
+    else:
+        q = torch.from_numpy(d0).to(cuda_device, dtype)
+        qv = torch.from_numpy(v0).to(cuda_device)
+    bank = torch.from_numpy(d1).to(cuda_device, dtype)
+    bv = torch.from_numpy(v1).to(cuda_device)
+    before = wrapper.launches
+    got = wrapper(q, bank, qv, bv)
+    ref = plain(q, bank, qv, bv)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    _agree(got, ref, index_slots, (kernel, b, n1, n2, c, dtype, broadcast))
+
+
+@pytest.mark.cuda
+def test_k5_k6_kernels_resolve_ties_by_the_contract(cuda_device):
+    """Query rows 3 and 200 identical with bank column 7 their copy (a column
+    tie), bank columns 9 and 150 identical with query row 40 their copy (a
+    row tie), in different tiles and row blocks: the lowest index wins both
+    ways and each tied max is also its second value. Row 5 is invalid and
+    bank 1 all invalid."""
+    rng = np.random.default_rng(6)
+    d0, d1, _, _ = _pair(rng, 2, 256, 256, 128, invalid=0.0)
+    d0[0, 200] = d0[0, 3]
+    d1[0, 7] = d0[0, 3]
+    d1[0, 150] = d1[0, 9]
+    d0[0, 40] = d1[0, 9]
+    q, bank = torch.from_numpy(d0).to(cuda_device), torch.from_numpy(d1).to(cuda_device)
+    qv = torch.ones((2, 256), dtype=torch.bool, device=cuda_device)
+    qv[0, 5] = False
+    bv = torch.ones((2, 256), dtype=torch.bool, device=cuda_device)
+    bv[1] = False
+    m12, nn12, m21, nn21 = nn_argmax_cuda(q, bank, qv, bv)
+    t = nn_top2_cuda(q, bank, qv, bv)
+    torch.cuda.synchronize()
+    assert nn12[0, 3] == 7 and nn12[0, 200] == 7 and nn21[0, 7] == 3
+    assert nn12[0, 40] == 9 and nn21[0, 9] == 40 and nn21[0, 150] == 40
+    assert t[1][0, 40] == 9 and t[2][0, 40] == t[0][0, 40]  # row tie: 2nd == max
+    assert t[4][0, 7] == 3 and t[5][0, 7] == t[3][0, 7]     # column tie: 2nd == max
+    assert (m12[1] < -5e8).all() and (m21[0] > -5e8).all()  # invalid bank / one invalid row
+    for got, ref in (((m12, nn12, m21, nn21), nn_argmax(q, bank, qv, bv)),
+                     (t, nn_top2(q, bank, qv, bv))):
+        for g, r in zip(got, ref):
+            assert torch.equal(g, r) if g.dtype == torch.int32 else (g - r).abs().max() <= 1e-5
