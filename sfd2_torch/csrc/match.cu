@@ -15,8 +15,10 @@
 //
 // Design: a block owns BM=128 query rows of one batch entry, staged once in
 // shared memory (k-major, so each thread reads its 8 rows and 4 columns as
-// float4s), and walks all of N2 in BN=64-wide tiles of d1. Every s[i,j] is
-// computed once, in registers (8×4 per thread, f32 FMA chain over C);
+// float4s), and walks all of N2 in BN=64-wide tiles of d1. Past C = 256 the
+// stripe would not fit shared memory: C is then staged in KC_MAX-wide
+// chunks, the query stripe's with each bank tile's (any C % 4 == 0). Every
+// s[i,j] is computed once, in registers (8×4 per thread, f32 FMA chain over C);
 // both reductions read that same value, so the equality test is exact.
 // Rows keep a running max and first-occurrence argmax (strictly-greater
 // update, columns scanned in ascending order, ties across threads broken
@@ -40,12 +42,12 @@ __global__ void __launch_bounds__(THREADS, 2)
 mutual_kernel(const T* __restrict__ d0, const T* __restrict__ d1,
               const uint8_t* __restrict__ v0, const uint8_t* __restrict__ v1,
               long long sd0, long long sd1, long long sv0, long long sv1,
-              int N1, int N2, int C, float* __restrict__ rmax,
+              int N1, int N2, int C, int KC, float* __restrict__ rmax,
               int* __restrict__ ridx, int* __restrict__ cmax_enc) {
   extern __shared__ float smem[];
-  float* q_s = smem;              // [C][BM]
-  float* d_s = q_s + C * BM;      // [C][BN]
-  float* red = d_s + C * BN;      // [16][BN] column partial maxima
+  float* q_s = smem;              // [KC][BM]
+  float* d_s = q_s + KC * BM;     // [KC][BN]
+  float* red = d_s + KC * BN;     // [16][BN] column partial maxima
 
   const int b = blockIdx.y;
   const int row0 = blockIdx.x * BM;
@@ -56,7 +58,7 @@ mutual_kernel(const T* __restrict__ d0, const T* __restrict__ d1,
   const uint8_t* qv = v0 + b * sv0;
   const uint8_t* dv = v1 + b * sv1;
 
-  stage(q_s, q, row0, BM, N1, C);
+  if (KC == C) stage(q_s, q, row0, BM, N1, C);
 
   float rbias[8];
   bool rin[8];
@@ -76,7 +78,7 @@ mutual_kernel(const T* __restrict__ d0, const T* __restrict__ d1,
 
   for (int j0 = 0; j0 < N2; j0 += BN) {
     float acc[8][4];
-    sim_tile(acc, q_s, d_s, q, db, row0, N1, j0, N2, C, C, ty, tx);
+    sim_tile(acc, q_s, d_s, q, db, row0, N1, j0, N2, C, KC, ty, tx);
 
     float cm[4];
 #pragma unroll
@@ -157,7 +159,8 @@ int launch(const T* d0, const T* d1, const uint8_t* v0, const uint8_t* v1,
            long long sd0, long long sd1, long long sv0, long long sv1, int B,
            int N1, int N2, int C, float* rmax, int* ridx, int* cmax_enc,
            int* matches, float* scores, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * ((size_t)C * (BM + BN) + 16 * BN);
+  const int KC = C <= 256 ? C : KC_MAX;
+  const size_t smem = sizeof(float) * ((size_t)KC * (BM + BN) + 16 * BN);
   cudaError_t err = cudaFuncSetAttribute(
       mutual_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -165,7 +168,7 @@ int launch(const T* d0, const T* d1, const uint8_t* v0, const uint8_t* v1,
   fill_kernel<<<grid_for(ncol), 256, 0, stream>>>(cmax_enc, ncol, 2.f * NEG);
   const dim3 grid((N1 + BM - 1) / BM, B);
   mutual_kernel<T><<<grid, THREADS, smem, stream>>>(d0, d1, v0, v1, sd0, sd1, sv0, sv1,
-                                                    N1, N2, C, rmax, ridx, cmax_enc);
+                                                    N1, N2, C, KC, rmax, ridx, cmax_enc);
   const size_t nrow = (size_t)B * N1;
   epilogue_kernel<<<grid_for(nrow), 256, 0, stream>>>(rmax, ridx, cmax_enc, v0, sv0, B, N1,
                                                        N2, matches, scores);
@@ -175,7 +178,7 @@ int launch(const T* d0, const T* d1, const uint8_t* v0, const uint8_t* v1,
 }  // namespace
 
 // Batch strides (sd*, sv*) are in elements; 0 broadcasts one query to
-// every batch entry. C % 4 == 0 and C <= 256.
+// every batch entry. C % 4 == 0.
 extern "C" int sfd2_mutual_nn_match(const void* d0, const void* d1, const uint8_t* v0,
                                     const uint8_t* v1, long long sd0, long long sd1,
                                     long long sv0, long long sv1, int B, int N1, int N2,

@@ -1,5 +1,6 @@
-// Shared pieces of the matcher kernels, K2 (match.cu), K4 (match_ratio.cu),
-// K5 (nn_argmax.cu) and K6 (nn_top2.cu): the block tiling, the descriptor
+// Shared pieces of the CUDA-core matcher kernels, K2 (match.cu) and K4
+// (match_ratio.cu), and the value encoding of K5 and K6 (nn_tc.cuh): the
+// block tiling, the descriptor
 // loads, the k-major shared-memory staging, the 8×4 f32 FMA tile that
 // computes each similarity once, in registers, for both reductions, and the
 // order-preserving int encoding of a float for atomicMax.
@@ -15,7 +16,7 @@ constexpr int BM = 128;       // query rows per block
 constexpr int BN = 64;        // bank columns per tile
 constexpr int THREADS = 256;  // 16 × 16; thread tile 8 rows × 4 columns
 constexpr float NEG = -1e9f;  // bias of an invalid row or column
-constexpr int KC_MAX = 128;   // descriptor columns staged at once by K5 and K6
+constexpr int KC_MAX = 128;   // descriptor columns staged at once past C = 256
 
 // Order-preserving int encoding of a float (for atomicMax): a < b as floats
 // iff enc(a) < enc(b) as ints (no NaN; −0 sorts below +0, and an f32 FMA
@@ -87,8 +88,8 @@ __device__ __forceinline__ void dot_tile_acc(float (&acc)[8][4], const float* q_
 // The similarity tile of every matcher kernel: acc[r][c] = q row
 // (row0 + ty*8 + r) · bank row (j0 + tx*4 + c), one f32 FMA chain over
 // k = 0..C-1 in ascending order, staged KC columns at a time (q_s [KC][BM],
-// d_s [KC][BN]). With KC == C (K2, K4, and K5/K6 at C <= KC_MAX) the caller
-// stages the q stripe once, before its first tile.
+// d_s [KC][BN]). With KC == C (C <= 256) the caller stages the q stripe
+// once, before its first tile.
 // Starts and ends with every thread past a __syncthreads() of its own loop,
 // so the caller's shared reductions of the previous tile are complete.
 // Because fmaf(a, b, s) == fmaf(b, a, s), swapping q and the bank gives

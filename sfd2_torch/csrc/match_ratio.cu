@@ -22,7 +22,8 @@
 // in csrc/match_common.cuh). A block owns BM=128 rows of one batch entry,
 // staged once in shared memory, and walks all of N2 in BN=64 tiles; every
 // s[i,j] is computed once in registers (8×4 per thread) and read by both
-// reductions. Rows keep (max, first argmax, second) and merge across the 16
+// reductions (past C = 256, C is staged in KC_MAX-wide chunks, as in K2).
+// Rows keep (max, first argmax, second) and merge across the 16
 // column lanes with the multiset top-2 rule. Columns: K2's single
 // order-preserving atomicMax cannot carry a second value, so each block
 // writes its per-column (c1, c2) over its 128 rows to a scratch
@@ -58,12 +59,12 @@ template <typename T>
 __global__ void __launch_bounds__(THREADS, 2)
 top2_kernel(const T* __restrict__ d0, const T* __restrict__ d1, const uint8_t* __restrict__ v0,
             const uint8_t* __restrict__ v1, long long sd0, long long sd1, long long sv0,
-            long long sv1, int N1, int N2, int C, float* __restrict__ rmax,
+            long long sv1, int N1, int N2, int C, int KC, float* __restrict__ rmax,
             int* __restrict__ ridx, float* __restrict__ rmax2, float2* __restrict__ part) {
   extern __shared__ float smem[];
-  float* q_s = smem;           // [C][BM]
-  float* d_s = q_s + C * BM;   // [C][BN]
-  float* red1 = d_s + C * BN;  // [16][BN] column partial firsts
+  float* q_s = smem;            // [KC][BM]
+  float* d_s = q_s + KC * BM;   // [KC][BN]
+  float* red1 = d_s + KC * BN;  // [16][BN] column partial firsts
   float* red2 = red1 + 16 * BN;  // [16][BN] column partial seconds
 
   const int b = blockIdx.y;
@@ -75,7 +76,7 @@ top2_kernel(const T* __restrict__ d0, const T* __restrict__ d1, const uint8_t* _
   const uint8_t* qv = v0 + b * sv0;
   const uint8_t* dv = v1 + b * sv1;
 
-  stage(q_s, q, row0, BM, N1, C);
+  if (KC == C) stage(q_s, q, row0, BM, N1, C);
 
   float rbias[8];
   bool rin[8];
@@ -93,7 +94,7 @@ top2_kernel(const T* __restrict__ d0, const T* __restrict__ d1, const uint8_t* _
 
   for (int j0 = 0; j0 < N2; j0 += BN) {
     float acc[8][4];
-    sim_tile(acc, q_s, d_s, q, db, row0, N1, j0, N2, C, C, ty, tx);
+    sim_tile(acc, q_s, d_s, q, db, row0, N1, j0, N2, C, KC, ty, tx);
 
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
@@ -202,13 +203,14 @@ int launch(const T* d0, const T* d1, const uint8_t* v0, const uint8_t* v1, long 
            long long sd1, long long sv0, long long sv1, int B, int N1, int N2, int C,
            float ratio, float* rmax, int* ridx, float* rmax2, float2* part, float* cm1,
            float* cm2, int* matches, float* scores, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * ((size_t)C * (BM + BN) + 32 * BN);
+  const int KC = C <= 256 ? C : KC_MAX;
+  const size_t smem = sizeof(float) * ((size_t)KC * (BM + BN) + 32 * BN);
   cudaError_t err = cudaFuncSetAttribute(
       top2_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int n_rb = (N1 + BM - 1) / BM;
   top2_kernel<T><<<dim3(n_rb, B), THREADS, smem, stream>>>(
-      d0, d1, v0, v1, sd0, sd1, sv0, sv1, N1, N2, C, rmax, ridx, rmax2, part);
+      d0, d1, v0, v1, sd0, sd1, sv0, sv1, N1, N2, C, KC, rmax, ridx, rmax2, part);
   merge_kernel<<<grid_for((size_t)B * N2), 256, 0, stream>>>(part, B, n_rb, N2, cm1, cm2);
   epilogue_kernel<<<grid_for((size_t)B * N1), 256, 0, stream>>>(
       rmax, ridx, rmax2, cm1, cm2, v0, sv0, B, N1, N2, ratio, matches, scores);
@@ -221,7 +223,7 @@ int launch(const T* d0, const T* d1, const uint8_t* v0, const uint8_t* v1, long 
 extern "C" int sfd2_match_ratio_rows_per_block() { return BM; }
 
 // Batch strides (sd*, sv*) are in elements; 0 broadcasts one query to
-// every batch entry. C % 4 == 0 and C <= 256.
+// every batch entry. C % 4 == 0.
 extern "C" int sfd2_mutual_nn_ratio_match(const void* d0, const void* d1, const uint8_t* v0,
                                           const uint8_t* v1, long long sd0, long long sd1,
                                           long long sv0, long long sv1, int B, int N1, int N2,

@@ -90,6 +90,15 @@ def load(name: str) -> ctypes.CDLL:
         return _libs[name]
 
 
+def sass(name: str) -> str:
+    """The SASS of the built library for csrc/<name>.cu (``cuobjdump -sass``,
+    from the toolkit beside nvcc), built first if needed."""
+    load(name)
+    cuobjdump = Path(_nvcc()).parent / "cuobjdump"
+    return subprocess.run([str(cuobjdump), "-sass", str(_paths(name)[1])], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+
+
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:
     """Raise if a C entry point returned a CUDA error code."""
     if code != 0:

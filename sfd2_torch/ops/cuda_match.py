@@ -4,10 +4,10 @@ Counterpart of ``sfd2_tpu/ops/pallas_match.py::mutual_nn_match_pallas``,
 with the contract of ``ops/matching.py::mutual_nn_match`` (max-equality
 mutuality: an exact tie between rows is granted to every tying row). The
 kernel (``csrc/match.cu``) takes any N1, N2 (ragged edges are masked in
-the kernel, so there is no tiled fallback), C % 4 == 0 up to 256, f32 or
-bf16 descriptors (bf16 is widened to f32, accumulation is f32), and a
-batch stride of 0 on ``desc0``/``valid0`` to broadcast one query to every
-bank without copying it.
+the kernel, so there is no tiled fallback), any C % 4 == 0 (past 256 in
+chunks), f32 or bf16 descriptors (bf16 is widened to f32, accumulation is
+f32), and a batch stride of 0 on ``desc0``/``valid0`` to broadcast one
+query to every bank without copying it.
 
 On a CPU tensor the wrapper returns the plain version; on a CUDA tensor it
 launches the kernel or raises.
@@ -41,11 +41,9 @@ def _check_rows(t: torch.Tensor, name: str, align: int, what: str):
         raise ValueError(f"{what}: {name} is not {align}-byte aligned")
 
 
-def check_match_args(desc0: torch.Tensor, desc1: torch.Tensor, valid0, valid1, what: str,
-                     max_c: int | None = 256):
+def check_match_args(desc0: torch.Tensor, desc1: torch.Tensor, valid0, valid1, what: str):
     """Validate the arguments of a matcher kernel (K2, K4, K5, K6) on CUDA
-    tensors: C % 4 == 0 and C <= max_c (None: any C, for kernels that stage
-    C in chunks). Returns (b, n1, n2, c, valid0, valid1) with absent masks
+    tensors: C % 4 == 0. Returns (b, n1, n2, c, valid0, valid1) with absent masks
     made all-valid (valid0 broadcast with batch stride 0)."""
     if desc0.device.type != "cuda" or desc1.device != desc0.device:
         raise ValueError(f"{what}: unsupported devices {desc0.device}, {desc1.device}")
@@ -57,7 +55,7 @@ def check_match_args(desc0: torch.Tensor, desc1: torch.Tensor, valid0, valid1, w
         raise ValueError(f"{what}: shapes {tuple(desc0.shape)} vs {tuple(desc1.shape)}")
     if desc0.dtype != desc1.dtype or desc0.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"{what}: unsupported dtypes {desc0.dtype}, {desc1.dtype}")
-    if c % 4 or c == 0 or (max_c is not None and c > max_c) or b == 0 or n1 == 0 or n2 == 0:
+    if c % 4 or c == 0 or b == 0 or n1 == 0 or n2 == 0:
         raise ValueError(f"{what}: unsupported shape B={b} N1={n1} N2={n2} C={c}")
     dev = desc0.device
     if valid0 is None:
@@ -74,6 +72,31 @@ def check_match_args(desc0: torch.Tensor, desc1: torch.Tensor, valid0, valid1, w
     _check_rows(valid0, "valid0", 1, what)
     _check_rows(valid1, "valid1", 1, what)
     return b, n1, n2, c, valid0, valid1
+
+
+NN_TC_ROW_BYTES = 128  # ROW_BYTES of csrc/nn_tc.cuh: C is padded to whole 128-byte rows
+
+
+def nn_tc_scratch(desc0: torch.Tensor, desc1: torch.Tensor):
+    """Scratch of the tensor-core kernels K5 and K6 (``csrc/nn_tc.cuh``), in
+    one allocation: each operand padded with zeros to whole 128-byte rows,
+    [B or 1, N, Cp] (one batch entry for a stride-0 operand), twice over
+    (TF32 hi and lo) for f32; and the 64-bit (value, index) keys of rows
+    [B, N1] and columns [B, N2]. Returns (buffer, its four region
+    addresses): keep the buffer alive while the kernel runs."""
+    b, n1, c = desc0.shape
+    n2 = desc1.shape[1]
+    per = NN_TC_ROW_BYTES // desc0.element_size()
+    cp = -(-c // per) * per
+    copies = 1 if desc0.dtype == torch.bfloat16 else 2
+    sizes = [copies * n1 * (1 if desc0.stride(0) == 0 else b) * cp * desc0.element_size(),
+             copies * n2 * (1 if desc1.stride(0) == 0 else b) * cp * desc1.element_size(),
+             8 * b * n1, 8 * b * n2]
+    starts = [0]
+    for size in sizes[:-1]:
+        starts.append(starts[-1] + -(-size // 256) * 256)
+    buf = torch.empty(starts[-1] + sizes[-1], dtype=torch.uint8, device=desc0.device)
+    return buf, [buf.data_ptr() + start for start in starts]
 
 
 def mutual_nn_match_cuda(desc0: torch.Tensor, desc1: torch.Tensor,

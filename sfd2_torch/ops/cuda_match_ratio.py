@@ -6,8 +6,8 @@ mutual_nn_ratio_match_pallas``, with the contract of
 ``ops/matching.py::mutual_nn_ratio_match`` (max-equality mutuality,
 multiset top-2 on rows and columns). The kernel (``csrc/match_ratio.cu``)
 takes any N1, N2 (ragged edges are masked in the kernel, so the TPU's
-tiled fallback K6 is not on this path), C % 4 == 0 up to 256, f32 or bf16
-descriptors (accumulation is f32), and a batch stride of 0 on
+tiled fallback K6 is not on this path), any C % 4 == 0 (past 256 in
+chunks), f32 or bf16 descriptors (accumulation is f32), and a batch stride of 0 on
 ``desc0``/``valid0``.
 
 On a CPU tensor the wrapper returns the plain version; on a CUDA tensor it

@@ -6,10 +6,12 @@ contract of ``ops/matching.py::nn_top2`` (the biases and lowest-index
 argmax of ``nn_argmax``, multiset second values). It is the public op
 ``nn_top2`` and the kernel of the NNR large-bank route
 (``ops/matching.py::mutual_nn_ratio_match_tiled``). The kernel
-(``csrc/nn_top2.cu``) reduces rows only and runs twice, once with the
-operands swapped, so it needs no column scratch; it takes any N1, N2, any
-C % 4 == 0, f32 or bf16 descriptors (accumulation is f32), and a batch
-stride of 0 on ``desc0``/``valid0``.
+(``csrc/nn_top2.cu`` on ``csrc/nn_tc.cuh``, K5's tensor-core tiles) computes
+each similarity once and reduces it both ways; tiles merge by atomics
+(K5's keys, the second value by the loser rule). It takes any N1, N2, any
+C % 4 == 0, f32 (3×TF32) or bf16 descriptors (accumulation is f32), and a
+batch stride of 0 on ``desc0``/``valid0``. The wrapper allocates K5's
+scratch (``cuda_match.nn_tc_scratch``).
 
 On a CPU tensor the wrapper returns the plain version; on a CUDA tensor it
 launches the kernel or raises.
@@ -23,7 +25,7 @@ import ctypes
 import torch
 
 from sfd2_torch.ops import cuda_build
-from sfd2_torch.ops.cuda_match import check_match_args
+from sfd2_torch.ops.cuda_match import check_match_args, nn_tc_scratch
 from sfd2_torch.ops.matching import nn_top2
 
 
@@ -32,7 +34,8 @@ def _lib() -> ctypes.CDLL:
     fn = lib.sfd2_nn_top2
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p, p, p, p, ll, ll, ll, ll, i, i, i, i, i, p, p, p, p, p, p, p]
+        fn.argtypes = [p, p, p, p, ll, ll, ll, ll, i, i, i, i, i, p, p, p, p, p, p, p, p, p, p,
+                       p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -45,21 +48,21 @@ def nn_top2_cuda(desc0: torch.Tensor, desc1: torch.Tensor,
     if desc0.device.type == "cpu":
         return nn_top2(desc0, desc1, valid0, valid1)
     what = "nn_top2_cuda"
-    b, n1, n2, c, valid0, valid1 = check_match_args(desc0, desc1, valid0, valid1, what,
-                                                     max_c=None)
+    b, n1, n2, c, valid0, valid1 = check_match_args(desc0, desc1, valid0, valid1, what)
     dev = desc0.device
+    lib = _lib()
+    buf, scratch = nn_tc_scratch(desc0, desc1)
     f32 = dict(dtype=torch.float32, device=dev)
     i32 = dict(dtype=torch.int32, device=dev)
     out = (torch.empty((b, n1), **f32), torch.empty((b, n1), **i32), torch.empty((b, n1), **f32),
            torch.empty((b, n2), **f32), torch.empty((b, n2), **i32), torch.empty((b, n2), **f32))
-    lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.sfd2_nn_top2(
             desc0.data_ptr(), desc1.data_ptr(), valid0.data_ptr(), valid1.data_ptr(),
             desc0.stride(0), desc1.stride(0), valid0.stride(0), valid1.stride(0),
             b, n1, n2, c, int(desc0.dtype == torch.bfloat16),
-            *(t.data_ptr() for t in out), stream)
+            *scratch, *(t.data_ptr() for t in out), stream)
     cuda_build.check(lib, code, what)
     nn_top2_cuda.launches += 1
     nn_top2_cuda.shapes[(b, n1, n2, c, desc0.stride(0) == 0)] += 1

@@ -5,6 +5,7 @@ no kernel, and ``chip_smoke.py`` refuses to run without a card."""
 import json
 import os
 import pkgutil
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -76,7 +77,9 @@ def test_kernel_sources_are_in_the_package():
     for name in cuda_build.kernel_sources():
         text = (cuda_build.CSRC / f"{name}.cu").read_text()
         assert "Replaces: sfd2_tpu/ops/pallas_" in text  # header note
-        assert 'extern "C"' in text and "cudaGetLastError" in text
+        included = "".join((cuda_build.CSRC / h).read_text()
+                           for h in re.findall(r'#include "(\w+\.cuh)"', text))
+        assert 'extern "C"' in text and "cudaGetLastError" in text + included
     assert "arch=compute_90a,code=sm_90a" in cuda_build.NVCC_FLAGS
 
 

@@ -134,10 +134,12 @@ def test_k1_kernel_rejects_odd_sizes(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,n1,n2,c", [(3, 300, 1000, 128), (2, 5, 37, 64), (1, 129, 65, 4)])
+@pytest.mark.parametrize("b,n1,n2,c", [(3, 300, 1000, 128), (2, 5, 37, 64), (1, 129, 65, 4),
+                                       (2, 300, 260, 512), (1, 200, 333, 320)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_k2_kernel_matches_plain_on_card(cuda_device, b, n1, n2, c, dtype):
-    """Ragged N1/N2 around the 128×64 tiles and a stride-0 (broadcast) query."""
+    """Ragged N1/N2 around the 128×64 tiles and a stride-0 (broadcast) query;
+    C past 256 (staged in 128-wide chunks)."""
     d0, d1, v0, v1 = _pair(np.random.default_rng(n1), b, n1, n2, c)
     q = torch.from_numpy(d0[:1]).to(cuda_device, dtype).expand(b, n1, c)
     bank = torch.from_numpy(d1).to(cuda_device, dtype)
@@ -246,12 +248,14 @@ def test_k4_wrapper_rejects_other_devices():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,n1,n2,c", [(3, 300, 1000, 128), (2, 5, 37, 64), (1, 129, 65, 4),
-                                       (2, 1000, 300, 256)])
+                                       (2, 1000, 300, 256), (2, 300, 260, 512),
+                                       (1, 200, 333, 320)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("broadcast", [False, True])
 def test_k4_kernel_matches_plain_on_card(cuda_device, b, n1, n2, c, dtype, broadcast):
     """Ragged N1/N2 around the 128×64 tiles, several row blocks (the column
-    top-2 merge), distinct banks and a stride-0 (broadcast) query."""
+    top-2 merge), distinct banks and a stride-0 (broadcast) query; C past
+    256 (staged in 128-wide chunks)."""
     d0, d1, v0, v1 = _pair(np.random.default_rng(n2), b, n1, n2, c)
     if broadcast:
         q = torch.from_numpy(d0[:1]).to(cuda_device, dtype).expand(b, n1, c)
@@ -329,12 +333,16 @@ def _agree(got, ref, index_slots, what):
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel", sorted(NN_KERNELS))
 @pytest.mark.parametrize("b,n1,n2,c", [(3, 300, 1000, 128), (2, 5, 37, 64), (1, 129, 65, 4),
-                                       (2, 1000, 300, 512), (1, 640, 700, 132)])
+                                       (2, 1000, 300, 512), (1, 640, 700, 132),
+                                       (1, 2048, 2048, 512), (1, 4096, 4096, 128),
+                                       (2, 384, 520, 256)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("broadcast", [False, True])
 def test_k5_k6_kernels_match_plain_on_card(cuda_device, kernel, b, n1, n2, c, dtype, broadcast):
-    """Ragged N1/N2 around the 128×64 tiles, C staged in one chunk (≤ 128)
-    or several (132, 512), distinct banks and a stride-0 (broadcast) query."""
+    """Ragged N1/N2 around the 128×128 tiles (520 is not a multiple of
+    128), C padded to one 128-byte chunk or several (132, 256, 512; C = 4
+    is mostly padding), the main shapes [1, 2048, 512] and [1, 4096, 128],
+    distinct banks and a stride-0 (broadcast) query."""
     wrapper, plain, index_slots = NN_KERNELS[kernel]
     d0, d1, v0, v1 = _pair(np.random.default_rng(n1 + c), b, n1, n2, c)
     if broadcast:
@@ -383,3 +391,24 @@ def test_k5_k6_kernels_resolve_ties_by_the_contract(cuda_device):
                      (t, nn_top2(q, bank, qv, bv))):
         for g, r in zip(got, ref):
             assert torch.equal(g, r) if g.dtype == torch.int32 else (g - r).abs().max() <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["nnm", "nnr"])
+def test_batch_matcher_takes_d2net_width_on_card(cuda_device, mode):
+    """D2-Net's 512-wide descriptors below the large-bank threshold go to
+    K2 / K4, which take them and return the plain result."""
+    from sfd2_torch.ops.matching import batch_matcher, tiled_route
+
+    assert not tiled_route(2048, 512)
+    d0, d1, v0, v1 = (torch.from_numpy(a).to(cuda_device)
+                      for a in _pair(np.random.default_rng(7), 1, 2048, 2048, 512))
+    kernel = mutual_nn_match_cuda if mode == "nnm" else mutual_nn_ratio_match_cuda
+    before = kernel.launches
+    m_k, s_k = batch_matcher(mode, 0.9)(d0, d1, v0, v1)
+    m_p, s_p = batch_matcher(mode, 0.9)(d0.cpu(), d1.cpu(), v0.cpu(), v1.cpu())
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    assert (m_k.cpu() == m_p).float().mean().item() >= 0.999
+    assert (s_k.cpu() - s_p).abs().max().item() <= 1e-5
+    assert (m_k >= 0).any()
