@@ -4,7 +4,8 @@ Run from the repository root:  python3 chip_smoke.py
 
 Builds every CUDA kernel from ``sfd2_torch/csrc`` (K1 fused stem, K2
 mutual-NN matcher, K3 row gather, K4 mutual-NN + ratio matcher, K5
-bidirectional argmax, K6 bidirectional top-2; K5 and K6 must hold wgmma
+bidirectional argmax, K6 bidirectional top-2; the four matchers K2, K4, K5
+and K6 run on the tensor cores of ``csrc/nn_tc.cuh`` and must hold wgmma
 instructions, HGMMA in their SASS), holds each against its plain PyTorch
 version at the main paths' shapes, with its bounds on the CUDA cores and on
 the tensor cores, then drives the main paths:
@@ -160,9 +161,10 @@ def matcher_bounds(flops: float, nbytes: float, nbytes_bf16: float) -> dict:
     """Bounds of a matcher kernel (K2, K4, K5, K6). `bound_ms`: f32 inputs at
     their 1e-5 accuracy on the tensor cores, as 3×TF32 (three products per
     term, so the TF32 peak ÷ 3), the least time the card takes for this
-    work and the path K5/K6 take; `bf16_tc_bound_ms`: bf16 inputs
-    (nbytes_bf16) at the bf16 peak; `cuda_core_bound_ms`: f32 FMA on the
-    CUDA cores, the path K2/K4 take."""
+    work and the path the four matchers take; `bf16_tc_bound_ms`: bf16
+    inputs (nbytes_bf16) at the bf16 peak; `cuda_core_bound_ms`: f32 FMA
+    on the CUDA cores, the least time of a kernel that keeps off the tensor
+    cores."""
     ms, by = bound(flops, nbytes, PEAK_TF32_FLOPS / 3)
     bf_ms, bf_by = bound(flops, nbytes_bf16, PEAK_BF16_FLOPS)
     cc_ms, cc_by = bound(flops, nbytes)
@@ -204,9 +206,10 @@ def phase_build(results):
         cuda_build.load(name)
     ptxas = [ln.strip() for log in logs.values() for ln in log.splitlines()
              if "registers" in ln or "spill" in ln]
-    # The tensor-core kernels must hold wgmma (SASS HGMMA) instructions.
+    # The tensor-core matchers must hold wgmma (SASS HGMMA) instructions;
+    # FFMA counts the f32 FMAs left on the CUDA cores.
     sass = {}
-    for name in ("nn_argmax", "nn_top2"):
+    for name in ("match", "match_ratio", "nn_argmax", "nn_top2"):
         dump = cuda_build.sass(name)
         sass[name] = {op: dump.count(op) for op in ("HGMMA", "HMMA", "FFMA")}
         require(sass[name]["HGMMA"] > 0, f"{name}: no HGMMA instruction in its library")
@@ -338,7 +341,11 @@ def match_case(b: int, n1: int, n2: int, c: int, broadcast: bool) -> dict:
             d0.to(torch.bfloat16), bank.to(torch.bfloat16), v0, v1)),
         plain_ms=cuda_ms(lambda: mutual_nn_match(d0, bank, v0, v1)),
         library_ms=cuda_ms(library), gflop=flops / 1e9, mbytes=nbytes / 1e6,
-        **matcher_bounds(flops, nbytes, nbytes - desc_bytes / 2))
+        **matcher_bounds(flops, nbytes, nbytes - desc_bytes / 2),
+        # the kernels alone, from a profiler trace (at B ≤ 2 the host's
+        # dispatch is a large part of ms and library_ms)
+        kernel_device_ms=device_ms_per_call(lambda: mutual_nn_match_cuda(d0, bank, v0, v1)),
+        library_device_ms=device_ms_per_call(library))
     emit("kernel_match", **row)
     return row
 
@@ -399,7 +406,9 @@ def ratio_case(b: int, n1: int, n2: int, c: int, broadcast: bool) -> dict:
         bf16_ms=cuda_ms(lambda: kernel(d0.to(torch.bfloat16), bank.to(torch.bfloat16), v0, v1)),
         plain_ms=cuda_ms(lambda: plain(d0, bank, v0, v1)),
         library_ms=cuda_ms(library), gflop=flops / 1e9, mbytes=nbytes / 1e6,
-        **matcher_bounds(flops, nbytes, nbytes - desc_bytes / 2))
+        **matcher_bounds(flops, nbytes, nbytes - desc_bytes / 2),
+        kernel_device_ms=device_ms_per_call(lambda: kernel(d0, bank, v0, v1)),
+        library_device_ms=device_ms_per_call(library))
     emit("kernel_match_ratio", **row)
     return row
 

@@ -18,7 +18,7 @@
 // 128] and [1, 2048, 512] (4.3 GFLOP each) the same bounds are 0.026 and
 // 0.004 ms, under the launch and pre-pass overheads.
 //
-// Design (csrc/nn_tc.cuh, shared with K6), against what held the row-stripe
+// Design (csrc/nn_tc.cuh, shared with K2, K4, K6), against what held the row-stripe
 // version back:
 // 1. Grid: the work items are the 128 × 128 tiles of S of all B pairs, in
 //    grouped order, walked by one persistent block per SM, so [1, 2048] is

@@ -1,5 +1,8 @@
-// K5 (nn_argmax.cu) and K6 (nn_top2.cu) on Hopper's tensor cores: one
-// kernel template for both, sm_90a only (wgmma).
+// The matchers on Hopper's tensor cores, sm_90a only (wgmma): one kernel
+// template for all four. K5 (nn_argmax.cu) and K2 (match.cu) take it
+// without, K6 (nn_top2.cu) and K4 (match_ratio.cu) with the second values
+// (TOP2); they differ only in their last pass over the merged keys (K5/K6
+// unpack them, K2/K4 decide the matches).
 //
 // S = D0·D1ᵀ is cut into 128 × 128 tiles: the work items of all B pairs,
 // walked in groups of GROUP_M row tiles so that the blocks running at once
@@ -11,7 +14,7 @@
 // - a (value, index) pair is one 64-bit key, (enc(v) ^ 0x80000000) << 32 |
 //   (0xFFFFFFFF − index): atomicMax keeps the largest value and, among
 //   equal values, the lowest index;
-// - K6's second value follows the loser rule: a tile pushes its key with
+// - TOP2's second value follows the loser rule: a tile pushes its key with
 //   old = atomicMax(key, new), then atomicMax(second, enc(max(its own
 //   second, value(min(old, new))))), old skipped while it is still the zero
 //   sentinel. Every key but the final winner loses exactly once (on arrival
@@ -42,7 +45,7 @@
 // then the four lanes of a quad (ties to the lower index). Columns: the
 // biased tile goes to shared memory, two threads scan each column (rows
 // ascending, one half each), and the halves merge. Then one atomic per row
-// and per column (K6: two, the second after the first's value returns).
+// and per column (TOP2: two, the second after the first's value returns).
 #pragma once
 
 #include <math.h>
@@ -364,7 +367,7 @@ __device__ __forceinline__ void lane_merge(float& v, int& vi, float& v2, int off
   }
 }
 
-// K6's second value of one push: the tile's own second and whichever key
+// TOP2's second value of one push: the tile's own second and whichever key
 // lost the atomicMax (none while `old` is the zero sentinel).
 __device__ __forceinline__ void push_second(int* second, unsigned long long mine,
                                             unsigned long long old, float v2) {
@@ -383,8 +386,8 @@ __device__ __forceinline__ void push(unsigned long long* key, int* second, float
 
 // A persistent block: work items blockIdx.x, + gridDim.x, ... (tiles of S
 // of every batch entry), each the product, both reductions and their
-// atomics. rsec/csec (K6 only) hold encoded second values until
-// unpack_kernel decodes them.
+// atomics. rsec/csec (TOP2 only) hold encoded second values until the
+// last pass decodes them.
 template <bool F32, bool TOP2>
 __global__ void __launch_bounds__(TC_THREADS, 1)
 nn_tc_kernel(const uint8_t* __restrict__ a_hi, const uint8_t* __restrict__ a_lo, long long sa,
@@ -538,16 +541,18 @@ __global__ void unpack_kernel(const unsigned long long* __restrict__ rkey, size_
   }
 }
 
+// The part every matcher (K2, K4, K5, K6) shares: the pre-pass and the
+// persistent main kernel, which leave the merged keys in rkey [B, N1] and
+// ckey [B, N2] and, for TOP2, the encoded second values in rsec/csec (null
+// otherwise). Each kernel's .cu then launches its own last pass over them.
 // Batch strides (sd*, sv*) in elements; 0 broadcasts one operand to every
 // batch entry. op0/op1: the padded (and, for f32, split) operands, sized by
 // the wrapper: [B or 1, N, Cp] elements of T, twice for f32 (hi, then lo).
-// rsec/csec null for K5.
 template <typename T, bool TOP2>
-int nn_tc_launch(const T* d0, const T* d1, const uint8_t* v0, const uint8_t* v1, long long sd0,
-                 long long sd1, long long sv0, long long sv1, int B, int N1, int N2, int C,
-                 void* op0, void* op1, unsigned long long* rkey, unsigned long long* ckey,
-                 float* rmax, int* ridx, float* rsec, float* cmax, int* cidx, float* csec,
-                 cudaStream_t stream) {
+int nn_tc_run(const T* d0, const T* d1, const uint8_t* v0, const uint8_t* v1, long long sd0,
+              long long sd1, long long sv0, long long sv1, int B, int N1, int N2, int C,
+              void* op0, void* op1, unsigned long long* rkey, unsigned long long* ckey, int* rsec,
+              int* csec, cudaStream_t stream) {
   constexpr bool F32 = sizeof(T) == 4;
   const int Cp = nn_tc_padded_width(C, (int)sizeof(T));
   const int pitch = Cp * (int)sizeof(T);
@@ -560,8 +565,8 @@ int nn_tc_launch(const T* d0, const T* d1, const uint8_t* v0, const uint8_t* v1,
 
   const size_t rows = (size_t)B0 * N1 + (size_t)B1 * N2;
   prep_kernel<T><<<grid_for(rows * Cp / 4 + nr + nc), 256, 0, stream>>>(
-      d0, sd0, B0, N1, d1, sd1, B1, N2, C, Cp, a_hi, a_lo, b_hi, b_lo, rkey, nr, ckey, nc,
-      reinterpret_cast<int*>(rsec), reinterpret_cast<int*>(csec));
+      d0, sd0, B0, N1, d1, sd1, B1, N2, C, Cp, a_hi, a_lo, b_hi, b_lo, rkey, nr, ckey, nc, rsec,
+      csec);
 
   constexpr int smem = tc_smem_bytes<F32>();
   // Per launch, not once per process: the attribute belongs to the current
@@ -580,8 +585,24 @@ int nn_tc_launch(const T* d0, const T* d1, const uint8_t* v0, const uint8_t* v1,
   nn_tc_kernel<F32, TOP2><<<(unsigned)(total < sms ? total : sms), TC_THREADS, smem, stream>>>(
       ah, reinterpret_cast<const uint8_t*>(a_lo), sd0 ? (long long)N1 * pitch : 0, bh,
       reinterpret_cast<const uint8_t*>(b_lo), sd1 ? (long long)N2 * pitch : 0, v0, v1, sv0, sv1,
-      N1, N2, pitch, pitch / ROW_BYTES, tiles_m, tiles_n, B, rkey, ckey,
-      reinterpret_cast<int*>(rsec), reinterpret_cast<int*>(csec));
+      N1, N2, pitch, pitch / ROW_BYTES, tiles_m, tiles_n, B, rkey, ckey, rsec, csec);
+  return (int)cudaGetLastError();
+}
+
+// K5's and K6's last pass: nn_tc_run, then the keys unpacked to (max,
+// argmax) and, for K6, the seconds decoded in place (rsec/csec are the
+// float outputs, holding encoded ints until unpack_kernel; null for K5).
+template <typename T, bool TOP2>
+int nn_tc_launch(const T* d0, const T* d1, const uint8_t* v0, const uint8_t* v1, long long sd0,
+                 long long sd1, long long sv0, long long sv1, int B, int N1, int N2, int C,
+                 void* op0, void* op1, unsigned long long* rkey, unsigned long long* ckey,
+                 float* rmax, int* ridx, float* rsec, float* cmax, int* cidx, float* csec,
+                 cudaStream_t stream) {
+  const int err = nn_tc_run<T, TOP2>(d0, d1, v0, v1, sd0, sd1, sv0, sv1, B, N1, N2, C, op0, op1,
+                                     rkey, ckey, reinterpret_cast<int*>(rsec),
+                                     reinterpret_cast<int*>(csec), stream);
+  if (err != 0) return err;
+  const size_t nr = (size_t)B * N1, nc = (size_t)B * N2;
   unpack_kernel<<<grid_for(nr + nc), 256, 0, stream>>>(rkey, nr, rmax, ridx, rsec, ckey, nc, cmax,
                                                         cidx, csec);
   return (int)cudaGetLastError();

@@ -20,7 +20,7 @@
 // Design: K5's (csrc/nn_tc.cuh): 128 × 128 tiles of S in grouped order,
 // walked by one persistent block per SM, a cp.async ring of 128-byte C
 // chunks, wgmma (3×TF32 or bf16) into f32 accumulators. The row-stripe version computed S twice (one row-only
-// kernel, launched again with the operands swapped) to avoid K4's
+// kernel, launched again with the operands swapped) to avoid a
 // per-row-block column scratch; here both directions reduce the same
 // accumulator in the tile, and the tiles merge by atomics on O(B·(N1 + N2))
 // scratch: the (max, argmax) key as K5's, the second value by the loser

@@ -3,11 +3,18 @@
 Counterpart of ``sfd2_tpu/ops/pallas_match.py::mutual_nn_match_pallas``,
 with the contract of ``ops/matching.py::mutual_nn_match`` (max-equality
 mutuality: an exact tie between rows is granted to every tying row). The
-kernel (``csrc/match.cu``) takes any N1, N2 (ragged edges are masked in
-the kernel, so there is no tiled fallback), any C % 4 == 0 (past 256 in
-chunks), f32 or bf16 descriptors (bf16 is widened to f32, accumulation is
-f32), and a batch stride of 0 on ``desc0``/``valid0`` to broadcast one
-query to every bank without copying it.
+kernel (``csrc/match.cu``) runs on the tensor cores through K5's tiles
+(``csrc/nn_tc.cuh``): f32 descriptors as 3×TF32 (within about 1e-6 of the
+plain f32 product), bf16 natively as bf16 × bf16, accumulation in f32; any
+N1, N2 (ragged edges are masked in the kernel, so there is no tiled
+fallback), any C % 4 == 0, and a batch stride of 0 on ``desc0``/``valid0``
+to broadcast one query to every bank without copying it. Then a last pass
+decides the matches from the merged row and column keys.
+
+The wrapper allocates the scratch (``nn_tc_scratch``): the operands padded
+to whole 128-byte rows, split into TF32 hi and lo for f32, and the 64-bit
+keys. It lives for one call; at the engine's [64, 4096, 128] with the
+query broadcast the split banks take 64·4096·128·4·2 B ≈ 268 MB.
 
 On a CPU tensor the wrapper returns the plain version; on a CUDA tensor it
 launches the kernel or raises.
@@ -29,7 +36,7 @@ def _lib() -> ctypes.CDLL:
     fn = lib.sfd2_mutual_nn_match
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p, p, p, p, ll, ll, ll, ll, i, i, i, i, i, p, p, p, p, p, p]
+        fn.argtypes = [p, p, p, p, ll, ll, ll, ll, i, i, i, i, i, p, p, p, p, p, p, p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -77,13 +84,15 @@ def check_match_args(desc0: torch.Tensor, desc1: torch.Tensor, valid0, valid1, w
 NN_TC_ROW_BYTES = 128  # ROW_BYTES of csrc/nn_tc.cuh: C is padded to whole 128-byte rows
 
 
-def nn_tc_scratch(desc0: torch.Tensor, desc1: torch.Tensor):
-    """Scratch of the tensor-core kernels K5 and K6 (``csrc/nn_tc.cuh``), in
-    one allocation: each operand padded with zeros to whole 128-byte rows,
-    [B or 1, N, Cp] (one batch entry for a stride-0 operand), twice over
-    (TF32 hi and lo) for f32; and the 64-bit (value, index) keys of rows
-    [B, N1] and columns [B, N2]. Returns (buffer, its four region
-    addresses): keep the buffer alive while the kernel runs."""
+def nn_tc_scratch(desc0: torch.Tensor, desc1: torch.Tensor, seconds: bool = False):
+    """Scratch of the tensor-core matcher kernels K2, K4, K5 and K6
+    (``csrc/nn_tc.cuh``), in one allocation: each operand padded with zeros
+    to whole 128-byte rows, [B or 1, N, Cp] (one batch entry for a stride-0
+    operand), twice over (TF32 hi and lo) for f32; the 64-bit (value,
+    index) keys of rows [B, N1] and columns [B, N2]; with ``seconds`` (K4)
+    also the encoded int32 second values of rows and columns. Returns
+    (buffer, its region addresses): keep the buffer alive while the kernel
+    runs."""
     b, n1, c = desc0.shape
     n2 = desc1.shape[1]
     per = NN_TC_ROW_BYTES // desc0.element_size()
@@ -91,7 +100,7 @@ def nn_tc_scratch(desc0: torch.Tensor, desc1: torch.Tensor):
     copies = 1 if desc0.dtype == torch.bfloat16 else 2
     sizes = [copies * n1 * (1 if desc0.stride(0) == 0 else b) * cp * desc0.element_size(),
              copies * n2 * (1 if desc1.stride(0) == 0 else b) * cp * desc1.element_size(),
-             8 * b * n1, 8 * b * n2]
+             8 * b * n1, 8 * b * n2] + ([4 * b * n1, 4 * b * n2] if seconds else [])
     starts = [0]
     for size in sizes[:-1]:
         starts.append(starts[-1] + -(-size // 256) * 256)
@@ -110,20 +119,17 @@ def mutual_nn_match_cuda(desc0: torch.Tensor, desc1: torch.Tensor,
     b, n1, n2, c, valid0, valid1 = check_match_args(desc0, desc1, valid0, valid1,
                                                      "mutual_nn_match_cuda")
     dev = desc0.device
-    rmax = torch.empty((b, n1), dtype=torch.float32, device=dev)
-    ridx = torch.empty((b, n1), dtype=torch.int32, device=dev)
-    cmax = torch.empty((b, n2), dtype=torch.int32, device=dev)
+    lib = _lib()
+    buf, scratch = nn_tc_scratch(desc0, desc1)
     matches = torch.empty((b, n1), dtype=torch.int32, device=dev)
     scores = torch.empty((b, n1), dtype=torch.float32, device=dev)
-    lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.sfd2_mutual_nn_match(
             desc0.data_ptr(), desc1.data_ptr(), valid0.data_ptr(), valid1.data_ptr(),
             desc0.stride(0), desc1.stride(0), valid0.stride(0), valid1.stride(0),
             b, n1, n2, c, int(desc0.dtype == torch.bfloat16),
-            rmax.data_ptr(), ridx.data_ptr(), cmax.data_ptr(),
-            matches.data_ptr(), scores.data_ptr(), stream)
+            *scratch, matches.data_ptr(), scores.data_ptr(), stream)
     cuda_build.check(lib, code, "mutual_nn_match_cuda")
     mutual_nn_match_cuda.launches += 1
     mutual_nn_match_cuda.shapes[(b, n1, n2, c, desc0.stride(0) == 0)] += 1

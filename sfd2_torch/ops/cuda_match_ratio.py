@@ -5,10 +5,18 @@ Counterpart of ``sfd2_tpu/ops/pallas_match.py::
 mutual_nn_ratio_match_pallas``, with the contract of
 ``ops/matching.py::mutual_nn_ratio_match`` (max-equality mutuality,
 multiset top-2 on rows and columns). The kernel (``csrc/match_ratio.cu``)
-takes any N1, N2 (ragged edges are masked in the kernel, so the TPU's
-tiled fallback K6 is not on this path), any C % 4 == 0 (past 256 in
-chunks), f32 or bf16 descriptors (accumulation is f32), and a batch stride of 0 on
-``desc0``/``valid0``.
+runs on the tensor cores through K6's tiles (``csrc/nn_tc.cuh``): f32
+descriptors as 3×TF32 (within about 1e-6 of the plain f32 product), bf16
+natively as bf16 × bf16, accumulation in f32; each similarity is computed
+once, the tiles' row and column top-2 merge by atomics (the second value by
+the loser rule), and a last pass applies mutuality and the ratio test. It
+takes any N1, N2 (ragged edges are masked in the kernel, so the TPU's tiled
+fallback K6 is not on this path), any C % 4 == 0, and a batch stride of 0
+on ``desc0``/``valid0``.
+
+The wrapper allocates the scratch (``cuda_match.nn_tc_scratch`` with the
+second values): the padded, split operands, the keys and the seconds,
+O(B·(N1 + N2)) beside the operands, for one call.
 
 On a CPU tensor the wrapper returns the plain version; on a CUDA tensor it
 launches the kernel or raises.
@@ -22,7 +30,7 @@ import ctypes
 import torch
 
 from sfd2_torch.ops import cuda_build
-from sfd2_torch.ops.cuda_match import check_match_args
+from sfd2_torch.ops.cuda_match import check_match_args, nn_tc_scratch
 from sfd2_torch.ops.matching import mutual_nn_ratio_match
 
 
@@ -34,8 +42,6 @@ def _lib() -> ctypes.CDLL:
         fn.argtypes = [p, p, p, p, ll, ll, ll, ll, i, i, i, i, i, f,
                        p, p, p, p, p, p, p, p, p]
         fn.restype = ctypes.c_int
-        lib.sfd2_match_ratio_rows_per_block.argtypes = []
-        lib.sfd2_match_ratio_rows_per_block.restype = ctypes.c_int
     return lib
 
 
@@ -51,22 +57,16 @@ def mutual_nn_ratio_match_cuda(desc0: torch.Tensor, desc1: torch.Tensor, ratio: 
     b, n1, n2, c, valid0, valid1 = check_match_args(desc0, desc1, valid0, valid1, what)
     dev = desc0.device
     lib = _lib()
-    n_rb = -(-n1 // lib.sfd2_match_ratio_rows_per_block())
-    f32 = dict(dtype=torch.float32, device=dev)
-    rmax, rmax2 = torch.empty((b, n1), **f32), torch.empty((b, n1), **f32)
-    ridx = torch.empty((b, n1), dtype=torch.int32, device=dev)
-    part = torch.empty((b, n_rb, n2, 2), **f32)  # per row block column (c1, c2)
-    cm1, cm2 = torch.empty((b, n2), **f32), torch.empty((b, n2), **f32)
+    buf, scratch = nn_tc_scratch(desc0, desc1, seconds=True)
     matches = torch.empty((b, n1), dtype=torch.int32, device=dev)
-    scores = torch.empty((b, n1), **f32)
+    scores = torch.empty((b, n1), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.sfd2_mutual_nn_ratio_match(
             desc0.data_ptr(), desc1.data_ptr(), valid0.data_ptr(), valid1.data_ptr(),
             desc0.stride(0), desc1.stride(0), valid0.stride(0), valid1.stride(0),
             b, n1, n2, c, int(desc0.dtype == torch.bfloat16), float(ratio),
-            rmax.data_ptr(), ridx.data_ptr(), rmax2.data_ptr(), part.data_ptr(),
-            cm1.data_ptr(), cm2.data_ptr(), matches.data_ptr(), scores.data_ptr(), stream)
+            *scratch, matches.data_ptr(), scores.data_ptr(), stream)
     cuda_build.check(lib, code, what)
     mutual_nn_ratio_match_cuda.launches += 1
     mutual_nn_ratio_match_cuda.shapes[(b, n1, n2, c, desc0.stride(0) == 0)] += 1

@@ -137,13 +137,19 @@ def test_k1_kernel_rejects_odd_sizes(cuda_device):
 @pytest.mark.parametrize("b,n1,n2,c", [(3, 300, 1000, 128), (2, 5, 37, 64), (1, 129, 65, 4),
                                        (2, 300, 260, 512), (1, 200, 333, 320)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_k2_kernel_matches_plain_on_card(cuda_device, b, n1, n2, c, dtype):
-    """Ragged N1/N2 around the 128×64 tiles and a stride-0 (broadcast) query;
-    C past 256 (staged in 128-wide chunks)."""
+@pytest.mark.parametrize("broadcast", [False, True])
+def test_k2_kernel_matches_plain_on_card(cuda_device, b, n1, n2, c, dtype, broadcast):
+    """Ragged N1/N2 around the 128×128 tiles, distinct banks and a stride-0
+    (broadcast) query; C padded to one 128-byte chunk or several (C = 4 is
+    mostly padding; 320 and 512 are 10 and 16 f32 chunks)."""
     d0, d1, v0, v1 = _pair(np.random.default_rng(n1), b, n1, n2, c)
-    q = torch.from_numpy(d0[:1]).to(cuda_device, dtype).expand(b, n1, c)
+    if broadcast:
+        q = torch.from_numpy(d0[:1]).to(cuda_device, dtype).expand(b, n1, c)
+        qv = torch.from_numpy(v0[:1]).to(cuda_device).expand(b, n1)
+    else:
+        q = torch.from_numpy(d0).to(cuda_device, dtype)
+        qv = torch.from_numpy(v0).to(cuda_device)
     bank = torch.from_numpy(d1).to(cuda_device, dtype)
-    qv = torch.from_numpy(v0[:1]).to(cuda_device).expand(b, n1)
     bv = torch.from_numpy(v1).to(cuda_device)
     m_k, s_k = mutual_nn_match_cuda(q, bank, qv, bv)
     m_p, s_p = mutual_nn_match(q, bank, qv, bv)
@@ -253,9 +259,9 @@ def test_k4_wrapper_rejects_other_devices():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("broadcast", [False, True])
 def test_k4_kernel_matches_plain_on_card(cuda_device, b, n1, n2, c, dtype, broadcast):
-    """Ragged N1/N2 around the 128×64 tiles, several row blocks (the column
-    top-2 merge), distinct banks and a stride-0 (broadcast) query; C past
-    256 (staged in 128-wide chunks)."""
+    """Ragged N1/N2 around the 128×128 tiles, several row tiles (the column
+    top-2 merge by the loser rule), distinct banks and a stride-0
+    (broadcast) query; C padded to one 128-byte chunk or several."""
     d0, d1, v0, v1 = _pair(np.random.default_rng(n2), b, n1, n2, c)
     if broadcast:
         q = torch.from_numpy(d0[:1]).to(cuda_device, dtype).expand(b, n1, c)
@@ -297,6 +303,16 @@ def test_k4_kernel_column_tie_and_invalid_bank(cuda_device):
     assert m_k[0, 3].item() == -1 and m_k[0, 70].item() == -1
     assert (m_k[1] == -1).all() and (s_k[1] == 0).all()
     assert torch.equal(m_k, m_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("source", ["match", "match_ratio"])
+def test_k2_k4_builds_hold_wgmma(cuda_device, source):
+    """K2 and K4 run on the tensor cores: their libraries hold wgmma
+    (HGMMA in the SASS)."""
+    from sfd2_torch.ops import cuda_build
+
+    assert cuda_build.sass(source).count("HGMMA") > 0
 
 
 NN_KERNELS = {"k5": (nn_argmax_cuda, nn_argmax, (1, 3)), "k6": (nn_top2_cuda, nn_top2, (1, 4))}

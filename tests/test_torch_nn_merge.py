@@ -1,5 +1,5 @@
-"""The arithmetic of the tensor-core K5/K6 kernels (``csrc/nn_tc.cuh``),
-modelled in numpy on the CPU.
+"""The arithmetic of the tensor-core matcher kernels K2, K4, K5 and K6
+(``csrc/nn_tc.cuh``), modelled in numpy on the CPU.
 
 1. The epilogue and the cross-tile merge. ``kernel_model`` takes the
    similarity S that the plain version computes, cuts it into the
@@ -13,6 +13,12 @@ modelled in numpy on the CPU.
    whatever the order, and agree with the Pallas kernels in interpret mode
    under the tolerances of ``test_torch_nn_tiled.py`` (indices exact,
    values 1e-5).
+   K2 and K4 run the same tiles and merges (K4 with the second values),
+   then their last pass over the merged keys (``epilogue_model``: K2's
+   ``match_epilogue``, K4's ``ratio_epilogue``); from the same S the
+   result must equal ``mutual_nn_match`` / ``mutual_nn_ratio_match`` bit
+   for bit in any tile order, and agree with the Pallas kernels in
+   interpret mode (matches identical, scores 1e-5).
 2. 3×TF32. Descriptors split into hi = tf32(x), lo = tf32(x − hi)
    (``cvt.rna``: 10 mantissa bits, round to nearest, ties away), products
    lo·hi + hi·lo then hi·hi, accumulated in float32 one wgmma depth (8
@@ -144,6 +150,30 @@ def kernel_model(s, valid0, valid1, top2: bool, rng):
     return out
 
 
+def dist(v):
+    """K4's dist, each step rounded to float32 on its own (no contraction),
+    as the kernel's round-to-nearest intrinsics compute it."""
+    return np.sqrt(np.maximum(F32(2) - F32(2) * np.asarray(v, F32), F32(0)))
+
+
+def epilogue_model(out, valid0, top2: bool, ratio=F32(0.9)):
+    """K2's (top2=False) or K4's last pass over one pair's merged keys, the
+    output of ``kernel_model``: a row is alive if it is valid and its key
+    value is above −5e8 (its key ignores its own bias); it is matched to its
+    key's index nn if the value equals column nn's key value and, for K4,
+    both distance ratios pass. → (matches int32, scores float32)."""
+    if top2:
+        r, nn, r2, c1, _, c2 = out
+    else:
+        r, nn, c1, _ = out
+    alive = valid0 & (r > NEG / 2)
+    ok = alive & (r == c1[nn])
+    if top2:
+        eps = F32(1e-8)
+        ok &= (dist(r) / (dist(r2) + eps) <= ratio) & (dist(c1[nn]) / (dist(c2[nn]) + eps) <= ratio)
+    return np.where(ok, nn, -1).astype(np.int32), np.where(alive, r, F32(0)).astype(F32)
+
+
 def unit(rng, *shape):
     d = rng.normal(size=shape).astype(F32)
     return d / np.linalg.norm(d, axis=-1, keepdims=True)
@@ -220,6 +250,60 @@ def test_merge_model_agrees_with_pallas_interpret(top2):
                 np.testing.assert_array_equal(g, r)
             else:
                 np.testing.assert_allclose(g, r, atol=1e-5)
+
+
+MATCHERS = {"k2": (False, tm.mutual_nn_match), "k4": (True, tm.mutual_nn_ratio_match)}
+
+
+@pytest.mark.parametrize("kernel", sorted(MATCHERS))
+@pytest.mark.parametrize("b,n1,n2,c,invalid,ties", CASES, ids=IDS)
+def test_matcher_model_equals_plain_in_any_order(kernel, b, n1, n2, c, invalid, ties):
+    """K2/K4: the tiles, merges and last pass from the plain version's S
+    give its matches and scores bit for bit, whatever the tile order,
+    through invalid rows and columns, exact row ties and a tied column max."""
+    top2, plain_fn = MATCHERS[kernel]
+    rng = np.random.default_rng(n1 + n2)
+    d0, d1, v0, v1 = _case(rng, b, n1, n2, c, invalid, ties)
+    t0, t1 = torch.from_numpy(d0), torch.from_numpy(d1)
+    tv0, tv1 = torch.from_numpy(v0), torch.from_numpy(v1)
+    plain = plain_fn(t0, t1, valid0=tv0, valid1=tv1)
+    s = tm._similarity(t0, t1).numpy()
+    for order_seed in range(3):
+        order_rng = np.random.default_rng(order_seed)
+        for k in range(b):
+            got = epilogue_model(kernel_model(s[k], v0[k], v1[k], top2, order_rng), v0[k], top2)
+            for g, p in zip(got, plain):
+                np.testing.assert_array_equal(g, p[k].numpy())
+    matches, scores = (p.numpy() for p in plain)
+    assert (scores[~v0] == 0).all() and (matches[~v0] == -1).all()  # dead rows
+    if ties:
+        assert matches[0, 259] == -1 and scores[0, 259] == 0  # invalid row of the column tie
+        if not top2:  # max-equality grants a tie to every tying row
+            assert matches[0, 3] == matches[0, 67] == matches[0, 131] == 7
+            assert matches[0, 40] == 9
+        assert matches[0, 3] == matches[0, 67] == matches[0, 131]
+
+
+@pytest.mark.parametrize("kernel", sorted(MATCHERS))
+def test_matcher_model_agrees_with_pallas_interpret(kernel):
+    top2, _ = MATCHERS[kernel]
+    rng = np.random.default_rng(12)
+    d0, d1, v0, v1 = _case(rng, 2, 256, 384, 32, 0.15, False)
+    s = tm._similarity(torch.from_numpy(d0), torch.from_numpy(d1)).numpy()
+    j = [jnp.asarray(x) for x in (d0, d1, v0, v1)]
+    if top2:
+        ref = pm.mutual_nn_ratio_match_pallas(j[0], j[1], 0.9, j[2], j[3], block_m=64,
+                                              interpret=True)
+    else:
+        ref = pm.mutual_nn_match_pallas(*j, block_m=64, interpret=True)
+    matched = 0
+    for k in range(2):
+        got = epilogue_model(kernel_model(s[k], v0[k], v1[k], top2, np.random.default_rng(k)),
+                             v0[k], top2)
+        np.testing.assert_array_equal(got[0], np.asarray(ref[0])[k])
+        np.testing.assert_allclose(got[1], np.asarray(ref[1])[k], atol=1e-5)
+        matched += int((got[0] >= 0).sum())
+    assert matched > 0
 
 
 def tf32(x):
