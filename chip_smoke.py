@@ -4,11 +4,12 @@ Run from the repository root:  python3 chip_smoke.py
 
 Builds every CUDA kernel from ``sfd2_torch/csrc`` (K1 fused stem, K2
 mutual-NN matcher, K3 row gather, K4 mutual-NN + ratio matcher, K5
-bidirectional argmax, K6 bidirectional top-2; the four matchers K2, K4, K5
-and K6 run on the tensor cores of ``csrc/nn_tc.cuh`` and must hold wgmma
-instructions, HGMMA in their SASS), holds each against its plain PyTorch
-version at the main paths' shapes, with its bounds on the CUDA cores and on
-the tensor cores, then drives the main paths:
+bidirectional argmax, K6 bidirectional top-2; K1's conv1b and the four
+matchers K2, K4, K5 and K6, which share ``csrc/nn_tc.cuh``, run on the
+tensor cores and must hold wgmma instructions, HGMMA in their SASS), holds
+each against its plain PyTorch version at the main paths' shapes, with its
+bounds on the CUDA cores and on the tensor cores (K3 also replayed from a
+CUDA graph, ``graph_ms``), then drives the main paths:
 - the query path: ``Extractor`` on four 1024² images with the full-width
   ResSegNetV2 (random weights from a seed), and
   ``LocalizationEngine.localize`` on the synthetic corridor scene at the
@@ -18,6 +19,10 @@ the tensor cores, then drives the main paths:
   (F-RANSAC, tracks, triangulation) → a map bundle adjustment (K3);
 - ``incremental_reconstruction`` from scratch on its first 12 images,
   matched with the NNR preset (K4), with bundle adjustment (K3);
+- in both map phases every ``bundle_adjust`` call (its LM iterations
+  replayed from a CUDA graph) is run again through the same LM iteration
+  stepped eagerly on the card (``ba_eager_s``): costs within 1e-4, and,
+  with ``index_add_``'s summation order fixed, poses and points too;
 - ``match_pairs`` on the large-bank route: 3 images × 68,992 keypoints ×
   C=128 and 3 × 19,584 × C=512 (D2-Net's width; each the first bank size
   the JAX package sends to its tiled kernels at that width), pairs (0,1),
@@ -39,12 +44,14 @@ not available.
 from __future__ import annotations
 
 import collections
+import contextlib
 import functools
 import json
 import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -57,12 +64,12 @@ from sfd2_torch.io.feature_store import FeatureStore, ImageFeatures, MatchStore
 from sfd2_torch.localization.engine import LocalizationEngine, LocalizerConfig
 from sfd2_torch.models.sfd2 import ResSegNetV2
 from sfd2_torch.ops import cuda_build
-from sfd2_torch.ops.cuda_gather import gather_rows_cuda
+from sfd2_torch.ops.cuda_gather import gather_rows_cuda, graph_capture_record
 from sfd2_torch.ops.cuda_match import mutual_nn_match_cuda
 from sfd2_torch.ops.cuda_match_ratio import mutual_nn_ratio_match_cuda
 from sfd2_torch.ops.cuda_nn_argmax import nn_argmax_cuda
 from sfd2_torch.ops.cuda_nn_top2 import nn_top2_cuda
-from sfd2_torch.ops.cuda_stem import StemWeights, fused_stem_cuda
+from sfd2_torch.ops.cuda_stem import StemWeights, fused_stem_cuda, stem_launch, stem_lib
 from sfd2_torch.ops.gather import gather_rows_plain
 from sfd2_torch.ops.matching import (mutual_nn_match, mutual_nn_ratio_match, nn_argmax, nn_top2,
                                     tiled_route)
@@ -71,7 +78,7 @@ from sfd2_torch.pipeline.extract import EXTRACTION_CONFS, ExtractionConfig, Extr
 from sfd2_torch.pipeline.match import MatchConfig, match_pairs
 from sfd2_torch.sfm import pipeline as sfm_pipeline
 from sfd2_torch.sfm import reconstruction as sfm_reconstruction
-from sfd2_torch.sfm.ba import BAProblem, bundle_adjust
+from sfd2_torch.sfm.ba import BAProblem, bundle_adjust, lm_result, lm_setup
 from sfd2_torch.sfm.pairs import pairs_from_covisibility
 from sfd2_torch.sfm.pipeline import TriangulationConfig, triangulate_map
 from sfd2_torch.sfm.reconstruction import ReconstructionConfig, incremental_reconstruction
@@ -80,8 +87,8 @@ from sfd2_torch.utils.synth import build_corridor_scene
 # H100 SXM peaks (NVIDIA data sheet, 700 W): f32 outside the tensor cores,
 # dense TF32 and bf16 on the tensor cores, and HBM bandwidth. The bound of
 # a kernel is the larger of its operations over a peak and its bytes over
-# the bandwidth. K1's `bound_ms` is against f32 FMA on the CUDA cores, K3's
-# is its bytes; the matchers' bounds are `matcher_bounds`.
+# the bandwidth. K3's is its bytes; K1's and the matchers' bounds are
+# `matcher_bounds`.
 PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_BF16_FLOPS = 989e12
@@ -152,26 +159,46 @@ def device_ms_per_call(fn, iters: int = 20) -> float | None:
     return total / 1e3 / iters if total else None
 
 
+def graph_ms(fn, n: int = 100) -> float:
+    """Device time of one call of fn inside a CUDA graph of n calls: the
+    graph replayed (``cuda_ms``), over n. The host dispatches the graph
+    once, so this is the call's time where a graph launches it (bundle
+    adjustment's LM iterations). The captured launches are measurements
+    and leave the launch counts as they were."""
+    fn()
+    torch.cuda.synchronize()
+    graph, stream = torch.cuda.CUDAGraph(), torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream), graph_capture_record():
+        graph.capture_begin()
+        for _ in range(n):
+            fn()
+        graph.capture_end()
+    torch.cuda.current_stream().wait_stream(stream)
+    return cuda_ms(graph.replay) / n
+
+
 def bound(flops: float, nbytes: float, peak: float = PEAK_F32_FLOPS):
     t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def matcher_bounds(flops: float, nbytes: float, nbytes_bf16: float) -> dict:
-    """Bounds of a matcher kernel (K2, K4, K5, K6). `bound_ms`: f32 inputs at
-    their 1e-5 accuracy on the tensor cores, as 3×TF32 (three products per
-    term, so the TF32 peak ÷ 3), the least time the card takes for this
-    work and the path the four matchers take; `bf16_tc_bound_ms`: bf16
-    inputs (nbytes_bf16) at the bf16 peak; `cuda_core_bound_ms`: f32 FMA
-    on the CUDA cores, the least time of a kernel that keeps off the tensor
-    cores."""
+def matcher_bounds(flops: float, nbytes: float, nbytes_bf16: float | None) -> dict:
+    """Bounds of a tensor-core kernel (K1, K2, K4, K5, K6). `bound_ms`: f32
+    inputs at f32 accuracy on the tensor cores, as 3×TF32 (three products
+    per term, so the TF32 peak ÷ 3), the least time the card takes for
+    this work and the path these kernels take; `bf16_tc_bound_ms` (the
+    matchers): bf16 inputs (nbytes_bf16) at the bf16 peak;
+    `cuda_core_bound_ms`: f32 FMA on the CUDA cores, the least time of a
+    kernel that keeps off the tensor cores."""
     ms, by = bound(flops, nbytes, PEAK_TF32_FLOPS / 3)
-    bf_ms, bf_by = bound(flops, nbytes_bf16, PEAK_BF16_FLOPS)
     cc_ms, cc_by = bound(flops, nbytes)
-    return dict(bound_ms=ms, bound_by=by, bound_peak="TF32 495 TFLOP/s / 3 (3xTF32)",
-                bf16_tc_bound_ms=bf_ms, bf16_tc_bound_by=bf_by, bf16_tc_peak="bf16 989 TFLOP/s",
-                cuda_core_bound_ms=cc_ms, cuda_core_bound_by=cc_by,
-                cuda_core_peak="f32 67 TFLOP/s")
+    out = dict(bound_ms=ms, bound_by=by, bound_peak="TF32 495 TFLOP/s / 3 (3xTF32)",
+               cuda_core_bound_ms=cc_ms, cuda_core_bound_by=cc_by, cuda_core_peak="f32 67 TFLOP/s")
+    if nbytes_bf16 is not None:
+        bf_ms, bf_by = bound(flops, nbytes_bf16, PEAK_BF16_FLOPS)
+        out.update(bf16_tc_bound_ms=bf_ms, bf16_tc_bound_by=bf_by, bf16_tc_peak="bf16 989 TFLOP/s")
+    return out
 
 
 def random_model_state(seed: int):
@@ -204,17 +231,24 @@ def phase_build(results):
     logs = cuda_build.build()
     for name in cuda_build.kernel_sources():
         cuda_build.load(name)
+    # K1's stage-A-only variant, timed beside K1 for conv1a's share.
+    logs.update({f"stem+{STEM_CONV1A_ONLY[0]}": log
+                 for log in cuda_build.build(["stem"], STEM_CONV1A_ONLY).values()})
+    stem_lib(STEM_CONV1A_ONLY)
     ptxas = [ln.strip() for log in logs.values() for ln in log.splitlines()
              if "registers" in ln or "spill" in ln]
-    # The tensor-core matchers must hold wgmma (SASS HGMMA) instructions;
-    # FFMA counts the f32 FMAs left on the CUDA cores.
+    # The tensor-core kernels must hold wgmma (SASS HGMMA) instructions;
+    # FFMA counts the f32 FMAs left on the CUDA cores (K1: conv1a).
     sass = {}
-    for name in ("match", "match_ratio", "nn_argmax", "nn_top2"):
+    for name in ("stem", "match", "match_ratio", "nn_argmax", "nn_top2"):
         dump = cuda_build.sass(name)
         sass[name] = {op: dump.count(op) for op in ("HGMMA", "HMMA", "FFMA")}
         require(sass[name]["HGMMA"] > 0, f"{name}: no HGMMA instruction in its library")
     emit("build", seconds=round(time.perf_counter() - t0, 3),
          sources=cuda_build.kernel_sources(), ptxas=ptxas, sass=sass)
+
+
+STEM_CONV1A_ONLY = ("STEM_CONV1A_ONLY",)  # csrc/stem.cu built without stage B
 
 
 class StemCase:
@@ -246,16 +280,26 @@ class StemCase:
             a = torch.relu(torch.nn.functional.conv2d(xc, self.w1c, self.b1, padding=1))
             return torch.relu(torch.nn.functional.conv2d(a, self.w2c, self.b2, stride=2, padding=1))
 
-        flops = b * (2 * 27 * 64 * h * w + 2 * 576 * 64 * (h // 2) * (w // 2))
+        flops_1a = b * 2 * 27 * 64 * h * w
+        flops = flops_1a + b * 2 * 576 * 64 * (h // 2) * (w // 2)
         nbytes = b * (h * w * 3 * 4 + (h // 2) * (w // 2) * 64 * 2)  # bf16 out
-        bound_ms, bound_by = bound(flops, nbytes)
+        scratch = torch.empty((b, h // 2, w // 2, 64), dtype=torch.bfloat16, device="cuda")
+        variant = stem_lib(STEM_CONV1A_ONLY)
+        ms = cuda_ms(lambda: fused_stem_cuda(x, weights, torch.bfloat16))
+        conv1a_ms = cuda_ms(lambda: stem_launch(variant, x, weights, scratch))
         row = dict(
             shape=[b, h, w, 3], max_abs_err=err, max_rel_err=rel, bf16_out_rel_err=rel16,
-            ms=cuda_ms(lambda: fused_stem_cuda(x, weights, torch.bfloat16)),
-            f32_out_ms=cuda_ms(lambda: fused_stem_cuda(x, weights, torch.float32)),
+            ms=ms, f32_out_ms=cuda_ms(lambda: fused_stem_cuda(x, weights, torch.float32)),
             plain_ms=cuda_ms(lambda: fused_stem_apply(x, weights.packed, torch.float32)),
             library_ms=cuda_ms(library), gflop=flops / 1e9, mbytes=nbytes / 1e6,
-            bound_ms=bound_ms, bound_by=bound_by)
+            **matcher_bounds(flops, nbytes, None),
+            # conv1a (16 % of the operations, on the FMA units) alone: the
+            # kernel built without stage B, its share of ms
+            conv1a_flop_share=flops_1a / flops, conv1a_only_ms=conv1a_ms,
+            conv1a_share=conv1a_ms / ms,
+            kernel_device_ms=device_ms_per_call(
+                lambda: fused_stem_cuda(x, weights, torch.bfloat16)),
+            library_device_ms=device_ms_per_call(library))
         emit("kernel_stem", **row)
         return row
 
@@ -776,12 +820,16 @@ def gather_case(n: int, m: int, c: int, sorted_idx: bool = False) -> dict:
     nbytes = (n * c + m + m * c) * 4
     bound_ms, bound_by = bound(0, nbytes)
     # ms: CUDA events around one call, host dispatch included (a
-    # microsecond kernel waits on it); *_device_ms: the kernels alone, from
-    # a profiler trace (null where the trace held no kernel event).
+    # microsecond kernel waits on it; median of 50, the host's time per
+    # call varies); graph_ms: one launch inside a CUDA
+    # graph of 100 (as bundle adjustment replays it); *_device_ms: the
+    # kernels alone, from a profiler trace (null where the trace held no
+    # kernel event).
     row = dict(shape=[n, m, c], sorted_idx=sorted_idx, max_abs_err=err,
-               ms=cuda_ms(lambda: gather_rows_cuda(table, idx)),
-               plain_ms=cuda_ms(lambda: gather_rows_plain(table, idx)),
-               library_ms=cuda_ms(lambda: table.index_select(0, idx)),
+               ms=cuda_ms(lambda: gather_rows_cuda(table, idx), iters=50),
+               graph_ms=graph_ms(lambda: gather_rows_cuda(table, idx)),
+               plain_ms=cuda_ms(lambda: gather_rows_plain(table, idx), iters=50),
+               library_ms=cuda_ms(lambda: table.index_select(0, idx), iters=50),
                kernel_device_ms=device_ms_per_call(lambda: gather_rows_cuda(table, idx)),
                library_device_ms=device_ms_per_call(lambda: table.index_select(0, idx)),
                mbytes=nbytes / 1e6, bound_ms=bound_ms, bound_by=bound_by)
@@ -894,7 +942,10 @@ def phase_localize(results):
 def device_profile(fn) -> dict:
     """One traced run of fn (torch.profiler, after the timed runs): wall
     time, device busy time and idle share, kernel launches, and the kernels
-    and host-side torch ops that take the most time."""
+    and host-side torch ops that take the most time. `device_kernels`
+    counts the kernels the card ran, `host_launch_calls` the host's launch
+    calls (kernel launches and `cudaGraphLaunch`, `graph_launches` of
+    them): a replayed graph runs its kernels on one host call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -912,8 +963,14 @@ def device_profile(fn) -> dict:
     busy_ms = sum(r[1] for r in dev)
     host = sorted(((e.key, e.self_cpu_time_total / 1e3, e.count) for e in events
                    if e.device_type == DeviceType.CPU), key=lambda r: -r[1])
+    count = lambda keys: sum(e.count for e in events if e.key in keys)  # noqa: E731
+    launch_keys = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")
     return dict(wall_ms=wall_ms, device_busy_ms=busy_ms, device_idle_share=1.0 - busy_ms / wall_ms,
-                kernel_launches=sum(e.count for e in events if e.key == "cudaLaunchKernel"),
+                kernel_launches=count(("cudaLaunchKernel",)),
+                device_kernels=sum(e.count for e in events if e.device_type == DeviceType.CUDA
+                                   and not e.key.startswith(("Memcpy", "Memset"))),
+                host_launch_calls=count(launch_keys + ("cudaGraphLaunch",)),
+                graph_launches=count(("cudaGraphLaunch",)),
                 top_kernels=[[k, round(ms, 3), n] for k, ms, n in dev[:8]],
                 top_torch_ops_self_cpu=[[k, round(ms, 3), n] for k, ms, n in host[:8]])
 
@@ -982,6 +1039,123 @@ class StageTimer:
     def report(self) -> dict:
         return {name: dict(seconds=round(self.seconds[name], 3), calls=self.calls[name])
                 for name in self.names}
+
+
+class RecordBA:
+    """For the duration of a `with`: every ``bundle_adjust`` call of the
+    map phases (``run_map_build``'s own and ``incremental_reconstruction``'s)
+    is kept with its arguments, result and seconds (the device
+    synchronised), and bundle adjustment's graph statistics start from 0."""
+
+    def __init__(self, device):
+        self.sync = device_sync(device)
+
+    def __enter__(self):
+        self.calls, self.seconds = [], 0.0
+        bundle_adjust.graph_captures = bundle_adjust.graph_replays = 0
+        bundle_adjust.capture_s = 0.0
+
+        def recorded(problem, **kwargs):
+            t0 = time.perf_counter()
+            res = bundle_adjust(problem, **kwargs)
+            self.sync()
+            self.seconds += time.perf_counter() - t0
+            self.calls.append((problem, kwargs, res))
+            return res
+
+        self._orig = globals()["_run_ba"], sfm_reconstruction.bundle_adjust
+        globals()["_run_ba"] = sfm_reconstruction.bundle_adjust = recorded
+        return self
+
+    def __exit__(self, *exc):
+        globals()["_run_ba"], sfm_reconstruction.bundle_adjust = self._orig
+
+
+_run_ba = bundle_adjust  # run_map_build's bundle_adjust (RecordBA swaps it)
+
+
+def eager_ba(problem: BAProblem, kwargs: dict):
+    """The problem through ``lm_setup``'s LM iteration stepped eagerly: what
+    ``bundle_adjust`` replays from a CUDA graph on the card."""
+    kwargs = dict(kwargs)
+    lm_iters = kwargs.pop("lm_iters", 10)
+    iterate, state = lm_setup(problem, **kwargs)
+    for _ in range(lm_iters):
+        state = iterate(state)
+    return lm_result(state)
+
+
+def ba_diff(got, ref) -> dict:
+    """Largest differences of two BA results: both costs relative; poses
+    (quaternions sign-aligned), translations and points absolute."""
+    cost = max(abs(float(a) - float(b)) / max(abs(float(b)), 1e-12)
+               for a, b in ((got.initial_cost, ref.initial_cost), (got.final_cost, ref.final_cost)))
+    sign = torch.sign(torch.sum(got.qvecs * ref.qvecs, dim=1, keepdim=True))
+    return dict(cost_rel=cost, qvec=(got.qvecs * sign - ref.qvecs).abs().max().item(),
+                tvec=(got.tvecs - ref.tvecs).abs().max().item(),
+                points=(got.points - ref.points).abs().max().item())
+
+
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """torch's deterministic algorithms, warnings only: ``index_add_`` on the
+    card then sums in a fixed order (a sorted ``index_put_``), so the same
+    work gives the same result on every run."""
+    prev = torch.are_deterministic_algorithms_enabled(), \
+        torch.is_deterministic_algorithms_warn_only_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            yield
+    finally:
+        torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
+
+
+def ba_against_eager(rec: RecordBA, what: str) -> dict:
+    """The recorded ``bundle_adjust`` calls (on the card, LM replayed from a
+    CUDA graph) beside the same problems through the same LM iteration
+    stepped eagerly on the same device, per call: seconds of both (and of
+    ``bundle_adjust`` run again after them, when nothing is loaded for the
+    first time: ``ba_graph_warm_s``); the largest differences of graph and
+    eager, and of the eager run and a second one (the spread that
+    ``index_add_``'s float atomics alone give, which ill-conditioned
+    problems amplify); and, under deterministic algorithms, of
+    ``bundle_adjust`` run again and the eager iteration."""
+    out = dict(calls=len(rec.calls), ba_graph_s=rec.seconds, ba_eager_s=0.0,
+               ba_graph_warm_s=0.0, graph_captures=bundle_adjust.graph_captures,
+               graph_replays=bundle_adjust.graph_replays, capture_s=bundle_adjust.capture_s,
+               graph_vs_eager=[], eager_vs_eager=[], deterministic_graph_vs_eager=[])
+    for problem, kwargs, got in rec.calls:
+        rec.sync()
+        t0 = time.perf_counter()
+        ref = eager_ba(problem, kwargs)
+        rec.sync()
+        t1 = time.perf_counter()
+        bundle_adjust(problem, **kwargs)
+        rec.sync()
+        out["ba_eager_s"] += t1 - t0
+        out["ba_graph_warm_s"] += time.perf_counter() - t1
+        out["graph_vs_eager"].append(ba_diff(got, ref))
+        out["eager_vs_eager"].append(ba_diff(eager_ba(problem, kwargs), ref))
+        with deterministic_algorithms():
+            out["deterministic_graph_vs_eager"].append(
+                ba_diff(bundle_adjust(problem, **kwargs), eager_ba(problem, kwargs)))
+    return out
+
+
+def check_ba_graph(rec: RecordBA, what: str):
+    """A map phase's bundle adjustment on the card: it replayed a CUDA graph;
+    its costs stay within 1e-4 (relative) of the eager iteration's; and with
+    ``index_add_``'s summation order fixed (deterministic algorithms), its
+    costs, poses and points stay within 1e-4 of the eager iteration's."""
+    out = ba_against_eager(rec, what)
+    emit(f"{what}_ba", **out)
+    require(out["graph_replays"] > 0, f"{what}: bundle adjustment replayed no CUDA graph")
+    worst = max(d["cost_rel"] for d in out["graph_vs_eager"])
+    require(worst <= 1e-4, f"{what}: graph BA cost differs from eager by {worst} (relative)")
+    for d in out["deterministic_graph_vs_eager"]:
+        require(max(d.values()) <= 1e-4, f"{what}: deterministic graph BA differs from eager: {d}")
 
 
 def gt_point(map_index, image_id: int, kp: int):
@@ -1087,7 +1261,7 @@ def run_map_build(store, scene, device, max_keypoints: int, batch_size: int = 16
 
     t0 = time.perf_counter()
     problem = map_ba_problem(cameras, images, points3d, device)
-    res = bundle_adjust(problem, lm_iters=2, cg_iters=8)
+    res = _run_ba(problem, lm_iters=2, cg_iters=8)
     initial, final = float(res.initial_cost), float(res.final_cost)
     sec["bundle_adjust"] = time.perf_counter() - t0
     require(final < initial, f"map_build: BA cost {initial} → {final} did not fall")
@@ -1189,24 +1363,28 @@ def launches_by_shape(counts) -> dict:
 
 def phase_map_build(results, store, scene):
     reset_launches()
-    out = run_map_build(store, scene, "cuda", max_keypoints=4096)
+    with RecordBA("cuda") as rec:
+        out = run_map_build(store, scene, "cuda", max_keypoints=4096)
     counts = read_launches()
     results["main_path"].append(counts)
     emit("map_build", **out, launches={k: sum(v.values()) for k, v in counts.items()},
          launch_shapes=launches_by_shape(counts))
     require(counts["mutual_nn_match"] and counts["gather_rows"],
             "map_build: K2 and K3 must both run")
+    check_ba_graph(rec, "map_build")
 
 
 def phase_reconstruct(results, store, scene):
     reset_launches()
-    out = run_reconstruct(store, scene, "cuda", max_keypoints=4096)
+    with RecordBA("cuda") as rec:
+        out = run_reconstruct(store, scene, "cuda", max_keypoints=4096)
     counts = read_launches()
     results["main_path"].append(counts)
     emit("reconstruct", **out, launches={k: sum(v.values()) for k, v in counts.items()},
          launch_shapes=launches_by_shape(counts))
     require(counts["mutual_nn_ratio_match"] and counts["gather_rows"],
             "reconstruct: K4 and K3 must both run")
+    check_ba_graph(rec, "reconstruct")
 
 
 def kernel_table(results, shapes: dict) -> list:
@@ -1214,8 +1392,9 @@ def kernel_table(results, shapes: dict) -> list:
     the compared launch record where the main paths spent the most kernel
     time (launches × ms), with every compared record (``key``: the
     wrapper's shape-and-layout record) and its main-path launches under
-    ``shapes``. The matchers' rows add the peak of ``bound_ms``, their bf16
-    time beside its bound, and the f32 bound on the CUDA cores."""
+    ``shapes``. The tensor-core kernels' rows (K1, the matchers) add the
+    peak of ``bound_ms`` and the f32 bound on the CUDA cores, the matchers
+    their bf16 time beside its bound."""
     table = []
     for name, k in KERNELS.items():
         rows = results[name]
@@ -1231,9 +1410,10 @@ def kernel_table(results, shapes: dict) -> list:
             **{f: first[f] for f in ("bound_peak", "bf16_ms", "bf16_tc_bound_ms",
                                      "cuda_core_bound_ms") if f in first},
             shapes=[{f: r[f] for f in ("key", "launches", "max_abs_err", "ms", "bf16_ms",
-                                       "plain_ms", "bound_ms", "bound_by", "bf16_tc_bound_ms",
-                                       "cuda_core_bound_ms", "library_ms", "kernel_device_ms",
-                                       "library_device_ms") if f in r}
+                                       "graph_ms", "plain_ms", "bound_ms", "bound_by",
+                                       "bf16_tc_bound_ms", "cuda_core_bound_ms", "library_ms",
+                                       "kernel_device_ms", "library_device_ms",
+                                       "conv1a_share") if f in r}
                     for r in per_shape]))
     return table
 

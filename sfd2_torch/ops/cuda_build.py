@@ -6,7 +6,8 @@ source, the shared ``csrc/*.cuh`` headers and the flags, so an edited
 source or header is rebuilt) and loaded with
 ctypes. Nothing is built when a module is imported: ``load`` builds on
 first use, ``build`` compiles several sources in parallel (one nvcc
-process each, all started together).
+process each, all started together). ``defines`` (``-D`` names) build a
+variant of a source beside it, under a hash of its own.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Sequence
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
@@ -26,7 +27,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
-_libs: Dict[str, ctypes.CDLL] = {}
+_libs: Dict[str, ctypes.CDLL] = {}  # by name, "+"-joined with a variant's defines
 
 
 def _nvcc() -> str:
@@ -36,10 +37,14 @@ def _nvcc() -> str:
     return exe
 
 
-def _paths(name: str):
+def _flags(defines: Sequence[str]) -> list[str]:
+    return [*NVCC_FLAGS, *(f"-D{d}" for d in defines)]
+
+
+def _paths(name: str, defines: Sequence[str] = ()):
     src = CSRC / f"{name}.cu"
     headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
-    digest = hashlib.sha256(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(src.read_bytes() + headers + " ".join(_flags(defines)).encode())
     return src, BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
@@ -47,7 +52,7 @@ def kernel_sources() -> list[str]:
     return sorted(p.stem for p in CSRC.glob("*.cu"))
 
 
-def build(names: Iterable[str] | None = None) -> Dict[str, str]:
+def build(names: Iterable[str] | None = None, defines: Sequence[str] = ()) -> Dict[str, str]:
     """Compile the named sources (all of csrc/ by default) that are not
     built yet; returns nvcc's output (with ``-Xptxas -v``: registers,
     shared memory and spills) per source. Raises if any build fails."""
@@ -55,11 +60,11 @@ def build(names: Iterable[str] | None = None) -> Dict[str, str]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = []
     for name in names:
-        src, out = _paths(name)
+        src, out = _paths(name, defines)
         if out.exists():
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        cmd = [_nvcc(), *_flags(defines), "-o", str(tmp), str(src)]
         jobs.append((name, out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     logs: Dict[str, str] = {}
@@ -76,18 +81,19 @@ def build(names: Iterable[str] | None = None) -> Dict[str, str]:
     return logs
 
 
-def load(name: str) -> ctypes.CDLL:
+def load(name: str, defines: Sequence[str] = ()) -> ctypes.CDLL:
     """The loaded library for csrc/<name>.cu, built first if needed."""
+    key = "+".join((name, *defines))
     with _lock:
-        if name not in _libs:
-            _, out = _paths(name)
+        if key not in _libs:
+            _, out = _paths(name, defines)
             if not out.exists():
-                build([name])
+                build([name], defines)
             lib = ctypes.CDLL(str(out))
             lib.sfd2_error_string.argtypes = [ctypes.c_int]
             lib.sfd2_error_string.restype = ctypes.c_char_p
-            _libs[name] = lib
-        return _libs[name]
+            _libs[key] = lib
+        return _libs[key]
 
 
 def sass(name: str) -> str:

@@ -22,11 +22,20 @@ delegates to COLMAP: point refinement inside ``point_triangulator``
   The LM and CG loops that were ``lax.scan`` are Python loops whose
   accept/reject stays on the device (``torch.where``): no iteration
   synchronises with the host.
+* One LM iteration is a function of its state (``lm_setup`` returns it
+  with the first state; ``LMState``). On CPU tensors ``bundle_adjust``
+  calls it ``lm_iters`` times. On CUDA tensors it runs the first iteration
+  eagerly, which loads every kernel, cuBLAS's workspace and K3's library,
+  then captures one iteration (the Schur-PCG solve with its whole CG loop,
+  the trial linearisation, accept/reject and the copy back into static
+  state tensors) as a CUDA graph and replays it for the other
+  ``lm_iters − 1``: a few hundred launches per iteration become one.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import time
+from typing import Callable, NamedTuple, Tuple
 
 import torch
 from torch.func import jacfwd, vmap
@@ -34,7 +43,8 @@ from torch.func import jacfwd, vmap
 from sfd2_torch.geometry.cameras import _distort
 from sfd2_torch.geometry.rotations import qvec_to_rotmat, rotmat_to_qvec
 from sfd2_torch.localization.pnp import _axis_angle_to_rotmat
-from sfd2_torch.ops.cuda_gather import gather_rows_cuda
+from sfd2_torch.ops.cuda_gather import (count_graph_replays, gather_rows_cuda,
+                                        graph_capture_record)
 from sfd2_torch.sfm.triangulation import _inv3_lanes
 
 
@@ -73,9 +83,14 @@ def _inv6_spd_lanes(m):
                                              dim=-1)) / ljj[..., None]
         lower[..., j, j] = ljj
         lower[..., j + 1:, j] = col
-    eye = torch.eye(n, dtype=m.dtype, device=m.device).expand(m.shape)
-    y = torch.linalg.solve_triangular(lower, eye, upper=False)
-    return torch.linalg.solve_triangular(lower.transpose(-1, -2), y, upper=True)
+    # L⁻¹ by forward substitution, one row at a time, then M⁻¹ = L⁻ᵀ·L⁻¹:
+    # elementwise kernels only, which a CUDA-graph capture takes as they are.
+    eye = torch.eye(n, dtype=m.dtype, device=m.device)
+    inv_l = torch.zeros_like(m)
+    for i in range(n):
+        acc = torch.sum(lower[..., i, :i, None] * inv_l[..., :i, :], dim=-2)
+        inv_l[..., i, :] = (eye[i] - acc) / lower[..., i, i:i + 1]
+    return inv_l.transpose(-1, -2) @ inv_l
 
 
 def _project_one(cam6, rot0, tvec0, point, cam_params):
@@ -117,11 +132,30 @@ def _segment_sum(values, idx, n):
                        device=values.device).index_add_(0, idx, values)
 
 
-def bundle_adjust(problem: BAProblem, lm_iters: int = 10, cg_iters: int = 20,
-                  huber_delta: float = 4.0, init_lambda: float = 1e-4,
-                  optimize_points: bool = True) -> BAResult:
-    """Run LM with Schur-complement PCG steps on the problem's device.
-    Returns updated poses, points and costs."""
+class LMState(NamedTuple):
+    """What one LM iteration carries from the last: the parameters (poses as
+    rotation matrices), the cost and linearisation at them, and λ, ν."""
+
+    rot: torch.Tensor  # [C, 3, 3]
+    tvecs: torch.Tensor  # [C, 3]
+    points: torch.Tensor  # [P, 3]
+    cost: torch.Tensor  # [] true Huber cost
+    r: torch.Tensor  # [O, 2] residuals
+    jc: torch.Tensor  # [O, 2, 6] pose Jacobians (0 on fixed cameras)
+    jp: torch.Tensor  # [O, 2, 3] point Jacobians
+    w: torch.Tensor  # [O] IRLS weights
+    lam: torch.Tensor  # [] damping λ
+    nu: torch.Tensor  # [] rejection growth ν
+    initial_cost: torch.Tensor  # [] cost before the first iteration
+
+
+def lm_setup(problem: BAProblem, cg_iters: int = 20, huber_delta: float = 4.0,
+             init_lambda: float = 1e-4,
+             optimize_points: bool = True) -> Tuple[Callable[[LMState], LMState], LMState]:
+    """(iterate, state): one LM iteration as a function of its state, and
+    the state before the first. ``iterate`` launches the same device work
+    on every call and never synchronises with the host, so a CUDA graph
+    can capture it; ``lm_result(state)`` gives the ``BAResult``."""
     # Observations sorted by point once per solve: everything downstream is
     # order-invariant, and the point gathers then read the table in order.
     order = torch.argsort(problem.obs_point, stable=True)
@@ -218,29 +252,111 @@ def bundle_adjust(problem: BAProblem, lm_iters: int = 10, cg_iters: int = 20,
         gtd = torch.sum(dcam * bc) + torch.sum(dpt * bp)
         return dcam, dpt, 0.5 * (lam * dtd - gtd)
 
-    rot0 = qvec_to_rotmat(problem.qvecs)
-    tvecs, points = problem.tvecs, problem.points
-    lin, cost0 = linearize(rot0, tvecs, points)
-    cost = cost0
-    lam = torch.tensor(init_lambda, dtype=dt, device=dev)
-    nu = torch.tensor(2.0, dtype=dt, device=dev)
-    for _ in range(lm_iters):
-        dcam, dpt, pred = solve(lin, lam)
-        rot_n = _axis_angle_to_rotmat(dcam[:, :3]) @ rot0
-        tvec_n, pts_n = tvecs + dcam[:, 3:], points + dpt
+    def iterate(s: LMState) -> LMState:
+        """One LM iteration: solve, trial linearisation, accept/reject."""
+        lin = (s.r, s.jc, s.jp, s.w)
+        dcam, dpt, pred = solve(lin, s.lam)
+        rot_n = _axis_angle_to_rotmat(dcam[:, :3]) @ s.rot
+        tvec_n, pts_n = s.tvecs + dcam[:, 3:], s.points + dpt
         lin_n, new_cost = linearize(rot_n, tvec_n, pts_n)
         finite = torch.isfinite(new_cost) & torch.isfinite(rot_n).all() & torch.isfinite(pts_n).all()
-        accept = finite & (new_cost < cost)
+        accept = finite & (new_cost < s.cost)
         # Gain ratio: actual / model-predicted reduction (on a rejected step
         # it only feeds the discarded accept branch of λ).
-        rho = (cost - new_cost) / torch.clamp(pred, min=1e-12)
-        rot0 = torch.where(accept, rot_n, rot0)
-        tvecs = torch.where(accept, tvec_n, tvecs)
-        points = torch.where(accept, pts_n, points)
-        cost = torch.where(accept, new_cost, cost)
-        lin = tuple(torch.where(accept, a, b) for a, b in zip(lin_n, lin))
-        lam_acc = lam * torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3, min=1.0 / 3.0)
-        lam = torch.where(accept, torch.clamp(lam_acc, 1e-10, 1e8), torch.clamp(lam * nu, max=1e8))
-        nu = torch.where(accept, 2.0, torch.clamp(nu * 2.0, max=64.0))
-    return BAResult(qvecs=rotmat_to_qvec(rot0), tvecs=tvecs, points=points, initial_cost=cost0,
-                    final_cost=cost)
+        rho = (s.cost - new_cost) / torch.clamp(pred, min=1e-12)
+        lam_acc = s.lam * torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3, min=1.0 / 3.0)
+        r, jc, jp, w = (torch.where(accept, a, b) for a, b in zip(lin_n, lin))
+        return LMState(
+            rot=torch.where(accept, rot_n, s.rot), tvecs=torch.where(accept, tvec_n, s.tvecs),
+            points=torch.where(accept, pts_n, s.points),
+            cost=torch.where(accept, new_cost, s.cost), r=r, jc=jc, jp=jp, w=w,
+            lam=torch.where(accept, torch.clamp(lam_acc, 1e-10, 1e8),
+                            torch.clamp(s.lam * s.nu, max=1e8)),
+            nu=torch.where(accept, 2.0, torch.clamp(s.nu * 2.0, max=64.0)),
+            initial_cost=s.initial_cost)
+
+    rot0 = qvec_to_rotmat(problem.qvecs)
+    (r, jc, jp, w), cost0 = linearize(rot0, problem.tvecs, problem.points)
+    state = LMState(rot=rot0, tvecs=problem.tvecs, points=problem.points, cost=cost0, r=r, jc=jc,
+                    jp=jp, w=w, lam=torch.tensor(init_lambda, dtype=dt, device=dev),
+                    nu=torch.tensor(2.0, dtype=dt, device=dev), initial_cost=cost0)
+    return iterate, state
+
+
+def lm_result(state: LMState) -> BAResult:
+    """The ``BAResult`` of an LM state (poses back to quaternions)."""
+    return BAResult(qvecs=rotmat_to_qvec(state.rot), tvecs=state.tvecs, points=state.points,
+                    initial_cost=state.initial_cost, final_cost=state.cost)
+
+
+# device index → (the side stream BA captures and replays on, the last
+# call's graph: kept until the next capture, which takes over its memory pool)
+_graph_state: dict = {}
+
+
+def _replay_in_graph(iterate, state: LMState, lm_iters: int) -> LMState:
+    """The LM loop on the card, on a side stream of its own (a capture
+    cannot run on the legacy default stream, and cuBLAS keeps a workspace
+    per stream, which the eager iteration creates before the capture):
+    iteration 1 eagerly, then one iteration captured over static copies of
+    the state, the copy back into them inside the graph, replayed
+    lm_iters − 1 times. K3's launches are counted per replay. The call
+    waits for its replays. Each capture draws on the memory pool of the
+    previous call's graph, kept alive until then and never replayed again:
+    a fresh pool per capture pays cudaMalloc on every call, and a pool no
+    graph holds cannot be reused."""
+    dev = state.points.get_device()
+    if dev not in _graph_state:
+        _graph_state[dev] = torch.cuda.Stream(dev), None
+    side, last = _graph_state[dev]
+    caller = torch.cuda.current_stream(dev)
+    side.wait_stream(caller)
+    with torch.cuda.stream(side):
+        if lm_iters >= 1:
+            state = iterate(state)
+        if lm_iters >= 2:
+            static = LMState(*(t.clone() for t in state))
+            graph = torch.cuda.CUDAGraph()
+            t0 = time.perf_counter()
+            with graph_capture_record() as captured:
+                graph.capture_begin(pool=None if last is None else last.pool())
+                try:
+                    for dst, src in zip(static, iterate(static)):
+                        dst.copy_(src)
+                finally:
+                    graph.capture_end()
+            bundle_adjust.capture_s += time.perf_counter() - t0
+            bundle_adjust.graph_captures += 1
+            for _ in range(lm_iters - 1):
+                graph.replay()
+            count_graph_replays(captured, lm_iters - 1)
+            bundle_adjust.graph_replays += lm_iters - 1
+            side.synchronize()
+            _graph_state[dev] = side, graph
+            state = static
+    caller.wait_stream(side)
+    for t in state:
+        t.record_stream(caller)
+    return state
+
+
+def bundle_adjust(problem: BAProblem, lm_iters: int = 10, cg_iters: int = 20,
+                  huber_delta: float = 4.0, init_lambda: float = 1e-4,
+                  optimize_points: bool = True) -> BAResult:
+    """Run LM with Schur-complement PCG steps on the problem's device (on
+    the card, replayed from a CUDA graph). Returns updated poses, points
+    and costs."""
+    iterate, state = lm_setup(problem, cg_iters, huber_delta, init_lambda, optimize_points)
+    if state.points.is_cuda:
+        state = _replay_in_graph(iterate, state, lm_iters)
+    else:
+        for _ in range(lm_iters):
+            state = iterate(state)
+    return lm_result(state)
+
+
+# Graph statistics since the caller last set them to 0: captures, replays
+# and the host seconds the captures took.
+bundle_adjust.graph_captures = 0
+bundle_adjust.graph_replays = 0
+bundle_adjust.capture_s = 0.0

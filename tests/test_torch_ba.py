@@ -5,7 +5,9 @@ cameras 0 and 1 fixed as gauge anchors). Both packages run the same
 Schur-PCG Levenberg–Marquardt in float32 with sums taken in another
 order, so the final cost is held to 1e-3 relative and the poses to 1e-4:
 both runs converge to the same minimum, where rounding no longer moves
-the estimate at that level.
+the estimate at that level. The LM iteration that ``bundle_adjust``
+replays from a CUDA graph on the card is ``lm_setup``'s function; stepped
+by hand on CPU tensors it gives exactly what ``bundle_adjust`` gives.
 """
 
 import jax.numpy as jnp
@@ -61,6 +63,37 @@ def test_point_only_bundle_adjust_matches_jax():
     got = tba.bundle_adjust(_port_problem(problem), lm_iters=15, cg_iters=5)
     _compare(ref, got)
     np.testing.assert_allclose(got.points.numpy(), np.asarray(ref.points), atol=1e-4)
+
+
+@pytest.mark.parametrize("lm_iters,cg_iters,n_outliers,huber_delta",
+                         [(10, 15, 0, 4.0), (3, 5, 0, 4.0), (6, 15, 60, 2.0)])
+def test_lm_iteration_stepped_by_hand_equals_bundle_adjust(lm_iters, cg_iters, n_outliers,
+                                                           huber_delta):
+    problem, _ = build_problem(np.random.default_rng(0), n_outliers=n_outliers)
+    ref = jba.bundle_adjust(problem, lm_iters=lm_iters, cg_iters=cg_iters,
+                            huber_delta=huber_delta)
+    port = _port_problem(problem)
+    got = tba.bundle_adjust(port, lm_iters=lm_iters, cg_iters=cg_iters, huber_delta=huber_delta)
+    iterate, state = tba.lm_setup(port, cg_iters=cg_iters, huber_delta=huber_delta)
+    assert isinstance(state, tba.LMState)
+    for _ in range(lm_iters):
+        state = iterate(state)
+    hand = tba.lm_result(state)
+    for a, b in zip(hand, got):
+        assert torch.equal(a, b)
+    _compare(ref, hand)
+    _compare(ref, got)
+
+
+def test_card_test_problem_is_the_jax_test_problem():
+    """The card tests build their BA problem with numpy alone
+    (``test_torch_kernels.py::_ba_problem``): it is this file's problem."""
+    from test_torch_kernels import _ba_problem
+
+    ref, _ = build_problem(np.random.default_rng(0))
+    got = _ba_problem("cpu", np.random.default_rng(0))
+    for name, a, b in zip(ref._fields, ref, got):
+        np.testing.assert_allclose(b.numpy(), np.asarray(a), atol=1e-6, err_msg=name)
 
 
 def test_small_block_inverses_match_jax(rng):

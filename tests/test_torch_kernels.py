@@ -17,13 +17,18 @@ in float32. K1 is held to rel 1e-4 (float32 sums in another order over
 may flip) and scores within 1e-5; K3 exactly (a gather does no arithmetic);
 K5 and K6 to ≥ 99.9 % identical indices and values within 1e-5, with exact
 ties resolved by their contract (lowest index, multiset second value).
+K3 is also held inside a CUDA graph, and bundle adjustment, which replays
+its LM iteration from one, to the same iteration stepped eagerly on the
+card within 1e-4 (``index_add_``'s float atomics sum in another order on
+every run).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from sfd2_torch.ops.cuda_gather import gather_rows_cuda
+from sfd2_torch.ops.cuda_gather import (count_graph_replays, gather_rows_cuda,
+                                        graph_capture_record)
 from sfd2_torch.ops.cuda_match import mutual_nn_match_cuda
 from sfd2_torch.ops.cuda_match_ratio import mutual_nn_ratio_match_cuda
 from sfd2_torch.ops.cuda_nn_argmax import nn_argmax_cuda
@@ -109,10 +114,12 @@ def test_k2_wrapper_rejects_other_devices():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(2, 70, 138), (1, 64, 256), (1, 2, 2)])
+@pytest.mark.parametrize("shape", [(2, 70, 138), (1, 64, 256), (1, 2, 2), (1, 18, 34),
+                                   (3, 30, 62), (1, 112, 96)])
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
 def test_k1_kernel_matches_plain_on_card(cuda_device, shape, out_dtype):
-    """Ragged tiles (H/2, W/2 not multiples of 8), a batch, a 2×2 image."""
+    """Ragged 8 × 16 tiles (H/2 or W/2 not multiples of 8 and 16, one
+    column or row past a tile), a batch, a 2×2 image, whole tiles."""
     sw = StemWeights(_stem_packed(), cuda_device)
     gen = torch.Generator(device=cuda_device).manual_seed(0)
     x = torch.randn((*shape, 3), generator=gen, device=cuda_device)
@@ -124,6 +131,15 @@ def test_k1_kernel_matches_plain_on_card(cuda_device, shape, out_dtype):
     assert got.dtype == out_dtype and got.shape == ref.shape
     rel = ((got.float() - ref).abs().max() / ref.abs().max()).item()
     assert rel <= (1e-4 if out_dtype == torch.float32 else 8e-3), rel  # bf16: 2^-8 rounding
+
+
+@pytest.mark.cuda
+def test_k1_build_holds_wgmma(cuda_device):
+    """K1's conv1b runs on the tensor cores: its library holds wgmma
+    (HGMMA in the SASS)."""
+    from sfd2_torch.ops import cuda_build
+
+    assert cuda_build.sass("stem").count("HGMMA") > 0
 
 
 @pytest.mark.cuda
@@ -223,6 +239,111 @@ def test_k3_kernel_matches_plain_on_card(cuda_device, c, idx_sorted, n, m):
     torch.cuda.synchronize()
     assert gather_rows_cuda.launches == before + (m > 0)
     assert torch.equal(got, gather_rows_plain(table, idx))
+
+
+@pytest.mark.cuda
+def test_k3_replayed_from_a_cuda_graph_counts_each_replay(cuda_device):
+    """K3 captured in a CUDA graph reads the table where it lies at replay
+    time: overwritten in place, each replay equals the plain gather of the
+    new values, and each replay counts one launch of its shape."""
+    rng = np.random.default_rng(11)
+    table = torch.from_numpy(rng.normal(size=(500, 6)).astype(np.float32)).to(cuda_device)
+    idx = torch.from_numpy(rng.integers(0, 500, 3000).astype(np.int32)).to(cuda_device)
+    gather_rows_cuda(table, idx)  # loads the library before the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    before, shapes_before = gather_rows_cuda.launches, dict(gather_rows_cuda.shapes)
+    with torch.cuda.stream(stream), graph_capture_record() as captured:
+        graph.capture_begin()
+        out = gather_rows_cuda(table, idx)
+        graph.capture_end()
+    torch.cuda.current_stream().wait_stream(stream)
+    assert captured == {(500, 3000, 6): 1}
+    assert gather_rows_cuda.launches == before and dict(gather_rows_cuda.shapes) == shapes_before
+    for k in range(3):
+        table.copy_(torch.from_numpy(rng.normal(size=(500, 6)).astype(np.float32)))
+        graph.replay()
+        count_graph_replays(captured)
+        torch.cuda.synchronize()
+        assert torch.equal(out, gather_rows_plain(table, idx))
+        assert gather_rows_cuda.launches == before + k + 1
+        assert gather_rows_cuda.shapes[(500, 3000, 6)] == shapes_before.get((500, 3000, 6), 0) + k + 1
+
+
+def _ba_problem(device, rng, n_cams=6, n_pts=120, noise=0.2):
+    """The problem of tests/test_ba.py::build_problem (6 cameras, 120 points,
+    a pinhole camera, cameras 0 and 1 fixed, the others and the points
+    perturbed), built with numpy alone: that file imports jax."""
+    from scipy.spatial.transform import Rotation
+
+    from sfd2_torch.sfm.ba import BAProblem
+
+    cam = np.array([500.0, 500.0, 320.0, 240.0, 0, 0, 0, 0], np.float32)
+    pts = np.stack([rng.uniform(-4, 4, n_pts), rng.uniform(-3, 3, n_pts),
+                    rng.uniform(8, 14, n_pts)], 1)
+    rots = [Rotation.from_rotvec(rng.normal(size=3) * 0.05) for _ in range(n_cams)]
+    ts = [-r.as_matrix() @ np.array([i * 0.8 - 2.0, 0, 0]) for i, r in enumerate(rots)]
+    obs_xy, obs_cam, obs_pt = [], [], []
+    for ci, (r, t) in enumerate(zip(rots, ts)):
+        pc = pts @ r.as_matrix().T + t
+        xy = cam[:2] * pc[:, :2] / pc[:, 2:] + cam[2:4]
+        ok = (pc[:, 2] > 0) & (xy[:, 0] > 0) & (xy[:, 0] < 640) & (xy[:, 1] > 0) & (xy[:, 1] < 480)
+        for pi in np.nonzero(ok)[0]:
+            obs_xy.append(xy[pi] + rng.normal(size=2) * noise)
+            obs_cam.append(ci)
+            obs_pt.append(pi)
+    quat = lambda r: r.as_quat()[[3, 0, 1, 2]]  # noqa: E731  (w, x, y, z)
+    q_init = np.array([quat(r) for r in rots], np.float32)
+    t_init = np.array(ts, np.float32)
+    for ci in range(2, n_cams):
+        q_init[ci] = quat(Rotation.from_rotvec(rng.normal(size=3) * 0.01)
+                          * Rotation.from_quat(q_init[ci][[1, 2, 3, 0]]))
+        t_init[ci] += rng.normal(size=3) * 0.05
+    p_init = (pts + rng.normal(size=pts.shape) * 0.05).astype(np.float32)
+    fixed = np.zeros(n_cams, bool)
+    fixed[:2] = True
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)  # noqa: E731
+    return BAProblem(obs_xy=f32(obs_xy),
+                     obs_cam=torch.as_tensor(obs_cam, dtype=torch.int32, device=device),
+                     obs_point=torch.as_tensor(obs_pt, dtype=torch.int32, device=device),
+                     obs_w=torch.ones(len(obs_xy), device=device), qvecs=f32(q_init),
+                     tvecs=f32(t_init), cam_params=f32(np.tile(cam, (n_cams, 1))),
+                     points=f32(p_init), fixed_cams=torch.as_tensor(fixed, device=device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lm_iters,cg_iters", [(6, 15), (2, 8), (1, 5)])
+def test_bundle_adjust_graph_matches_eager_iteration_on_card(cuda_device, lm_iters, cg_iters):
+    """On the card ``bundle_adjust`` runs one LM iteration eagerly and
+    replays the rest from a CUDA graph: within 1e-4 of the same iteration
+    function stepped eagerly, with K3's launches counted alike."""
+    from sfd2_torch.sfm import ba
+
+    problem = _ba_problem(cuda_device, np.random.default_rng(0))
+    ba.bundle_adjust.graph_replays = ba.bundle_adjust.graph_captures = 0
+    before = gather_rows_cuda.launches
+    got = ba.bundle_adjust(problem, lm_iters=lm_iters, cg_iters=cg_iters)
+    torch.cuda.synchronize()
+    graph_launches = gather_rows_cuda.launches - before
+    assert ba.bundle_adjust.graph_replays == max(lm_iters - 1, 0)
+    assert ba.bundle_adjust.graph_captures == int(lm_iters >= 2)
+    iterate, state = ba.lm_setup(problem, cg_iters=cg_iters)
+    for _ in range(lm_iters):
+        state = iterate(state)
+    ref = ba.lm_result(state)
+    torch.cuda.synchronize()
+    assert gather_rows_cuda.launches - before - graph_launches == graph_launches
+    assert graph_launches == 5 + lm_iters * (9 + 2 * cg_iters)
+    assert float(got.final_cost) < float(got.initial_cost)
+    for name in ("initial_cost", "final_cost"):
+        a, b = float(getattr(got, name)), float(getattr(ref, name))
+        assert abs(a - b) <= 1e-4 * abs(b), (name, a, b)
+    sign = torch.sign(torch.sum(got.qvecs * ref.qvecs, dim=1, keepdim=True))
+    assert (got.qvecs * sign - ref.qvecs).abs().max().item() <= 1e-4
+    assert (got.tvecs - ref.tvecs).abs().max().item() <= 1e-4
+    assert (got.points - ref.points).abs().max().item() <= 1e-4
 
 
 @pytest.mark.cuda
