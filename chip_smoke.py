@@ -13,7 +13,17 @@ CUDA graph, ``graph_ms``), then drives the main paths:
 - the query path: ``Extractor`` on four 1024² images with the full-width
   ResSegNetV2 (random weights from a seed), and
   ``LocalizationEngine.localize`` on the synthetic corridor scene at the
-  production query shapes (4096 keypoints, 50 retrieved frames, C=128);
+  production query shapes (4096 keypoints, 50 retrieved frames, C=128),
+  then the engine's throughput paths on the same 8 queries:
+  ``localize_many`` (4 worker threads, bit-identical to the sequential
+  pass) and ``localize_throughput`` (every device stage once for all
+  queries), with the qps figures of ``bench.py``; PnP-RANSAC and the
+  refinement replay CUDA graphs captured once per padded shape
+  (``localization/graphs.py``), and ``pnp_graph`` holds one batch of each
+  against the same programs run eagerly on the card;
+- serving: ``LocalizationService`` warmed up behind ``make_server`` in a
+  thread, the 8 queries POSTed from 4 client threads, every answer equal
+  to the engine's;
 - map building on the same scene (60 DB images, 4096 keypoints, C=128):
   covisibility pairs → ``match_pairs`` (K2) → ``triangulate_map``
   (F-RANSAC, tracks, triangulation) → a map bundle adjustment (K3);
@@ -34,8 +44,10 @@ before each path and read just after. A shape a main path launched that
 the kernel phases did not compare is compared afterwards, so every launch
 shape is held against the plain version. Each phase prints one JSON line;
 any failed check raises and the script exits non-zero without a result.
-The last three lines are the kernel table (JSON), the card's name and
-power limit as nvidia-smi gives them, and ``{"ok": true, "device": {...}}``.
+Every phase line carries ``peak_mem_mb``, the most device memory
+allocated since the previous line. The last three lines are the kernel
+table (JSON), the card's name and power limit as nvidia-smi gives them, and
+``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package. Exits non-zero when CUDA is
 not available.
@@ -50,8 +62,11 @@ import json
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.request
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -61,6 +76,7 @@ from sfd2_torch.geometry.cameras import Camera, canonicalize_params
 from sfd2_torch.geometry.np_pose import camera_center, pose_error
 from sfd2_torch.io.colmap_model import Image, read_model, write_model
 from sfd2_torch.io.feature_store import FeatureStore, ImageFeatures, MatchStore
+from sfd2_torch.localization import graphs
 from sfd2_torch.localization.engine import LocalizationEngine, LocalizerConfig
 from sfd2_torch.models.sfd2 import ResSegNetV2
 from sfd2_torch.ops import cuda_build
@@ -82,6 +98,7 @@ from sfd2_torch.sfm.ba import BAProblem, bundle_adjust, lm_result, lm_setup
 from sfd2_torch.sfm.pairs import pairs_from_covisibility
 from sfd2_torch.sfm.pipeline import TriangulationConfig, triangulate_map
 from sfd2_torch.sfm.reconstruction import ReconstructionConfig, incremental_reconstruction
+from sfd2_torch.serving.server import LocalizationService, make_server
 from sfd2_torch.utils.synth import build_corridor_scene
 
 # H100 SXM peaks (NVIDIA data sheet, 700 W): f32 outside the tensor cores,
@@ -114,6 +131,11 @@ KERNELS = {
 
 
 def emit(phase: str, **fields):
+    """One JSON line; ``peak_mem_mb`` is the most device memory allocated
+    since the previous line (the peak is reset after each)."""
+    if torch.cuda.is_initialized():
+        fields["peak_mem_mb"] = torch.cuda.max_memory_allocated() / 2**20
+        torch.cuda.reset_peak_memory_stats()
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
@@ -904,39 +926,233 @@ def phase_extract(results, state):
     emit("extract_profile", **device_profile(lambda: ex.extract_batch(images)))
 
 
+LOCALIZE_CONFIG = dict(max_keypoints=4096, pnp_pad_floor=4096)
+
+
+def pose_recall(results, queries) -> tuple:
+    """(recall@(0.25 m, 2°), recall@(0.5 m, 5°), rotation errors, translation
+    errors) of results against the queries' ground truth."""
+    errs = np.array([pose_error(r.qvec, r.tvec, q_gt, t_gt)
+                     for r, (_, q_gt, t_gt, _) in zip(results, queries)])
+    q_err, t_err = errs[:, 0], errs[:, 1]
+    return (float(np.mean((t_err < 0.25) & (q_err < 2.0))),
+            float(np.mean((t_err < 0.5) & (q_err < 5.0))), q_err, t_err)
+
+
+def same_results(a, b) -> bool:
+    """Bit-identical poses, counts and sources."""
+    return all(np.array_equal(x.qvec, y.qvec) and np.array_equal(x.tvec, y.tvec)
+               and x.num_inliers == y.num_inliers and x.source == y.source for x, y in zip(a, b))
+
+
 def phase_localize(results):
+    """The query path on the corridor scene: a first sequential pass, then
+    the timed one (it replays the first pass's graphs and must capture
+    none), then ``localize_many`` and ``localize_throughput`` on the same
+    queries, as ``bench.py:846-883`` scores them. Each path's launches are
+    read on their own."""
     store = FeatureStore()
     t0 = time.perf_counter()
     scene = build_corridor_scene(store, n_images=60, n_queries=8, n_points=14000,
                                  kp_per_image=4096, kp_per_query=4096, desc_dim=128,
                                  retrieval_k=50, seed=7)
     build_s = time.perf_counter() - t0
-    eng = LocalizationEngine(scene.map_index, store,
-                             LocalizerConfig(max_keypoints=4096, pnp_pad_floor=4096),
+    eng = LocalizationEngine(scene.map_index, store, LocalizerConfig(**LOCALIZE_CONFIG),
                              device="cuda")
-    reset_launches()
-    per_q, errs, sources = [], [], []
-    for i, (qname, q_gt, t_gt, near) in enumerate(scene.queries):
+    jobs = [(qname, scene.qinfo, [[j] for j in near]) for qname, _, _, near in scene.queries]
+    # A first pass uploads the banks and captures the graphs of every padded
+    # size these queries reach (query 0 the most, a later query's refinement
+    # may reach a larger correspondence bucket); the timed second pass
+    # replays them and must capture nothing.
+    graphs.stats.update(captures=0, replays=0, capture_s=0.0)
+    first_ms, first = [], []
+    for job in jobs:
         t1 = time.perf_counter()
-        res = eng.localize(qname, scene.qinfo, [[j] for j in near])
-        if i > 0:  # query 0 pays the bank uploads
-            per_q.append(time.perf_counter() - t1)
-        errs.append(pose_error(res.qvec, res.tvec, q_gt, t_gt))
-        sources.append(res.source)
-    q_err = np.array([e[0] for e in errs])
-    t_err = np.array([e[1] for e in errs])
-    r1 = float(np.mean((t_err < 0.25) & (q_err < 2.0)))
-    r2 = float(np.mean((t_err < 0.5) & (q_err < 5.0)))
-    results["main_path"].append(read_launches())
+        first.append(eng.localize(*job))
+        first_ms.append((time.perf_counter() - t1) * 1e3)
+    first_graphs = dict(graphs.stats)
+    reset_launches()
+    per_q, seq = [], []
+    for job in jobs:
+        t1 = time.perf_counter()
+        seq.append(eng.localize(*job))
+        per_q.append(time.perf_counter() - t1)
+    seq_counts = read_launches()
+    results["main_path"].append(seq_counts)
+    seq_graphs = {k: graphs.stats[k] - first_graphs[k] for k in first_graphs}
+    r1, r2, q_err, t_err = pose_recall(seq, scene.queries)
+
+    reset_launches()
+    t0 = time.perf_counter()
+    par = eng.localize_many(jobs, workers=4)
+    wall_p = time.perf_counter() - t0
+    par_counts = read_launches()
+    results["main_path"].append(par_counts)
+
+    eng.localize_throughput(jobs)  # warm: captures the graphs of the batched shapes
+    captures_warm = graphs.stats["captures"]
+    reset_launches()
+    bstats: dict = {}
+    t0 = time.perf_counter()
+    bat = eng.localize_throughput(jobs, stats=bstats)
+    wall_b = time.perf_counter() - t0
+    bat_counts = read_launches()
+    results["main_path"].append(bat_counts)
+    rb, _, _, _ = pose_recall(bat, scene.queries)
+    acc = sum(v for k, v in bstats.items() if k.endswith("_s"))
+    seq_qps = 1.0 / float(np.median(per_q))
+
     emit("localize", scene_build_s=build_s, e2e_query_ms=float(np.median(per_q)) * 1e3,
          per_query_ms=[x * 1e3 for x in per_q], recall_025m_2deg=r1, recall_05m_5deg=r2,
          med_terr_m=float(np.median(t_err)), med_rerr_deg=float(np.median(q_err)),
-         sources=sources, match_launches=mutual_nn_match_cuda.launches,
-         match_shapes=[[*k, v] for k, v in mutual_nn_match_cuda.shapes.items()])
+         sources=[r.source for r in seq], match_launches=sum(seq_counts["mutual_nn_match"].values()),
+         match_shapes=[[*k, v] for k, v in seq_counts["mutual_nn_match"].items()],
+         first_pass_ms=first_ms, first_pass_graph_captures=first_graphs["captures"],
+         first_pass_capture_s=first_graphs["capture_s"], graph_captures=seq_graphs["captures"],
+         graph_replays=seq_graphs["replays"],
+         e2e_qps_sequential=seq_qps, e2e_qps_pipelined=len(jobs) / wall_p,
+         e2e_qps_batched=len(jobs) / wall_b,
+         e2e_pipeline_speedup=max(len(jobs) / wall_p, len(jobs) / wall_b) / seq_qps,
+         e2e_accept_batched=f"{sum(r.source == 'accepted' for r in bat)}/{len(jobs)}",
+         e2e_recall_batched=rb,
+         e2e_batched_breakdown={**{k[:-2] + "_ms": v * 1e3 for k, v in sorted(bstats.items())
+                                   if k.endswith("_s")},
+                                "match_fetch_mb": bstats.get("match_fetch_mb", 0.0),
+                                "other_ms": (wall_b - acc) * 1e3},
+         batched_sources=[r.source for r in bat],
+         pipelined_match_shapes=[[*k, v] for k, v in par_counts["mutual_nn_match"].items()],
+         batched_match_shapes=[[*k, v] for k, v in bat_counts["mutual_nn_match"].items()],
+         graph_captures_total=graphs.stats["captures"], graph_replays_total=graphs.stats["replays"])
     require(r1 >= 0.875, f"localize: recall@(0.25m, 2deg) {r1} < 0.875")
-    require(mutual_nn_match_cuda.launches > 0, "localize: the matcher kernel was not launched")
+    require(rb >= 0.875, f"localize_throughput: recall@(0.25m, 2deg) {rb} < 0.875")
+    require(seq_graphs["captures"] == 0,
+            "localize: the timed queries captured graphs anew instead of replaying them")
+    require(seq_graphs["replays"] > 0, "localize: no CUDA graph was replayed")
+    require(same_results(first, seq), "localize: the second pass differs from the first")
+    require(same_results(seq, par), "localize_many: results differ from the sequential loop")
+    require(graphs.stats["captures"] == captures_warm,
+            "localize_throughput: the timed run captured graphs anew")
+    for name, counts in (("localize", seq_counts), ("localize_many", par_counts),
+                         ("localize_throughput", bat_counts)):
+        require(sum(counts["mutual_nn_match"].values()) > 0,
+                f"{name}: the matcher kernel was not launched")
     profile_query(eng, scene)
-    return store, scene
+    phase_pnp_graph(eng, jobs)
+    return store, scene, seq
+
+
+def phase_pnp_graph(eng, jobs):
+    """One batch of the throughput path's PnP-RANSAC inputs and one of its
+    refinement inputs, recorded from a ``localize_throughput`` run: each
+    program replayed from its CUDA graphs against the same program run
+    eagerly on the card (identical inliers, counts and sources of
+    success, poses within 1e-5), with the seconds of both."""
+    recorded, real = [], graphs.run
+
+    def recording(program):
+        recorded.append(program)
+        return real(program)
+
+    graphs.run = recording
+    try:
+        eng.localize_throughput(jobs)
+    finally:
+        graphs.run = real
+    out = {}
+    for kind, n_flags in (("pnp", 9), ("refine", 8)):
+        prog = next(p for p in recorded if p.name[0] == kind)
+        got, ref = real(prog), graphs.run_eager(prog)
+        torch.cuda.synchronize()
+        pose_err = (got[:, :7] - ref[:, :7]).abs().max().item()
+        same = torch.equal(got[:, 7:n_flags], ref[:, 7:n_flags]) and \
+            torch.equal(got[:, n_flags:], ref[:, n_flags:])
+        secs = {}
+        for how, fn in (("graph", real), ("eager", graphs.run_eager)):
+            times = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn(prog)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            secs[how] = float(np.median(times)) * 1e3
+        out[kind] = dict(key=str(graphs.program_key(prog)), queries=int(got.shape[0]),
+                         segments=["graph" if c else "eager" for c, _ in prog.segments],
+                         pose_max_abs_diff=pose_err, identical_counts_and_masks=same,
+                         graph_ms=secs["graph"], eager_ms=secs["eager"])
+        require(same, f"pnp_graph: {kind} counts or inlier masks differ between graph and eager")
+        require(pose_err <= 1e-5, f"pnp_graph: {kind} poses differ by {pose_err} > 1e-5")
+    emit("pnp_graph", **out)
+
+
+def phase_serve(results, store, scene, seq):
+    """``LocalizationService`` on the localize scene, warmed up, behind
+    ``make_server`` in a thread: /healthz, then the 8 queries POSTed from 4
+    client threads; every answer 200 and equal to ``engine.localize``'s,
+    and at least two requests in flight at once."""
+    service = LocalizationService(scene.map_index, store, LocalizerConfig(**LOCALIZE_CONFIG),
+                                  device="cuda")
+    warm_s = service.warmup()
+    server = make_server(service, port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://{server.server_address[0]}:{server.server_address[1]}"
+    in_flight, peak, gate = [0], [0], threading.Lock()
+    real = service.engine.localize
+
+    def counted(*args):
+        with gate:
+            in_flight[0] += 1
+            peak[0] = max(peak[0], in_flight[0])
+        try:
+            return real(*args)
+        finally:
+            with gate:
+                in_flight[0] -= 1
+
+    def post(i):
+        qname, _, _, near = scene.queries[i]
+        body = {"query_name": qname, "db_ids": [int(j) for j in near],
+                "camera": {"model": scene.cam_model, "width": scene.width,
+                           "height": scene.height, "params": list(scene.cam_params)}}
+        req = urllib.request.Request(f"{url}/localize", json.dumps(body).encode(),
+                                     {"Content-Type": "application/json"})
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return r.status, json.loads(r.read()), (time.perf_counter() - t0) * 1e3
+
+    service.engine.localize = counted
+    try:
+        with urllib.request.urlopen(f"{url}/healthz", timeout=60) as r:
+            health = json.loads(r.read())
+        captures = graphs.stats["captures"]
+        reset_launches()
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(max_workers=4) as pool:
+            replies = list(pool.map(post, range(len(scene.queries))))
+        wall = time.perf_counter() - t0
+        counts = read_launches()
+        results["main_path"].append(counts)
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+    equal = all(code == 200 and res["qvec"] == [float(v) for v in ref.qvec]
+                and res["tvec"] == [float(v) for v in ref.tvec]
+                and res["num_inliers"] == ref.num_inliers and res["source"] == ref.source
+                for (code, res, _), ref in zip(replies, seq))
+    emit("serve", warmup_s=warm_s, healthz=health, statuses=[c for c, _, _ in replies],
+         request_ms=[res["ms"] for _, res, _ in replies], client_ms=[ms for _, _, ms in replies],
+         wall_s=wall, qps=len(replies) / wall, peak_in_flight=peak[0], equal_to_engine=equal,
+         graph_captures=graphs.stats["captures"] - captures,
+         match_launches=sum(counts["mutual_nn_match"].values()))
+    require(health.get("ok") and health.get("images") == len(scene.map_index.images),
+            f"serve: /healthz answered {health}")
+    require(all(c == 200 for c, _, _ in replies), "serve: a request did not answer 200")
+    require(equal, "serve: answers differ from engine.localize's")
+    require(peak[0] >= 2, f"serve: requests never overlapped (peak {peak[0]})")
+    require(graphs.stats["captures"] == captures, "serve: requests captured graphs anew")
+    require(sum(counts["mutual_nn_match"].values()) > 0, "serve: the matcher kernel was not launched")
 
 
 def device_profile(fn) -> dict:
@@ -995,6 +1211,7 @@ def profile_query(eng, scene):
                    key=lambda r: -r[1])
     emit("localize_profile", **traced,
          top_port_functions_cum=[[k, round(ms, 3), n] for k, ms, n in funcs[:12]])
+    require(traced["graph_launches"] >= 1, "localize_profile: the traced query launched no graph")
 
 
 def device_sync(device):
@@ -1376,14 +1593,17 @@ def phase_map_build(results, store, scene):
 
 def phase_reconstruct(results, store, scene):
     reset_launches()
+    before = dict(graphs.stats)
     with RecordBA("cuda") as rec:
         out = run_reconstruct(store, scene, "cuda", max_keypoints=4096)
     counts = read_launches()
     results["main_path"].append(counts)
+    pnp_graphs = {k: graphs.stats[k] - before[k] for k in before}
     emit("reconstruct", **out, launches={k: sum(v.values()) for k, v in counts.items()},
-         launch_shapes=launches_by_shape(counts))
+         launch_shapes=launches_by_shape(counts), pnp_graphs=pnp_graphs)
     require(counts["mutual_nn_ratio_match"] and counts["gather_rows"],
             "reconstruct: K4 and K3 must both run")
+    require(pnp_graphs["replays"] > 0, "reconstruct: pnp_ransac replayed no CUDA graph")
     check_ba_graph(rec, "reconstruct")
 
 
@@ -1440,11 +1660,12 @@ def main():
     phase_kernel_match_ratio(results)
     phase_kernel_nn(results, "nn_argmax")
     phase_kernel_nn(results, "nn_top2")
-    # The main paths: extract, localize, map building, reconstruction and
-    # large-bank matching, each with the counts set to 0 just before it and
-    # read just after.
+    # The main paths: extract, localize (sequential, pipelined, batched),
+    # serve, map building, reconstruction and large-bank matching, each with
+    # the counts set to 0 just before it and read just after.
     phase_extract(results, state)
-    store, scene = phase_localize(results)
+    store, scene, seq = phase_localize(results)
+    phase_serve(results, store, scene, seq)
     phase_map_build(results, store, scene)
     phase_reconstruct(results, store, scene)
     phase_match_large(results)

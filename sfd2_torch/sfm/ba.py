@@ -42,7 +42,7 @@ from torch.func import jacfwd, vmap
 
 from sfd2_torch.geometry.cameras import _distort
 from sfd2_torch.geometry.rotations import qvec_to_rotmat, rotmat_to_qvec
-from sfd2_torch.localization.pnp import _axis_angle_to_rotmat
+from sfd2_torch.localization.pnp import _axis_angle_to_rotmat, _inv6_spd_lanes
 from sfd2_torch.ops.cuda_gather import (count_graph_replays, gather_rows_cuda,
                                         graph_capture_record)
 from sfd2_torch.sfm.triangulation import _inv3_lanes
@@ -68,29 +68,6 @@ class BAResult(NamedTuple):
     points: torch.Tensor
     initial_cost: torch.Tensor
     final_cost: torch.Tensor
-
-
-def _inv6_spd_lanes(m):
-    """Inverse of SPD [..., 6, 6] by Cholesky with clamped pivots, so a
-    near-singular float32 block gives a huge but finite inverse instead of
-    a NaN that would poison every camera through the PCG dot products."""
-    n = m.shape[-1]
-    lower = torch.zeros_like(m)
-    for j in range(n):
-        d = m[..., j, j] - torch.sum(lower[..., j, :j] ** 2, dim=-1)
-        ljj = torch.sqrt(torch.clamp(d, min=1e-20))
-        col = (m[..., j + 1:, j] - torch.sum(lower[..., j + 1:, :j] * lower[..., j:j + 1, :j],
-                                             dim=-1)) / ljj[..., None]
-        lower[..., j, j] = ljj
-        lower[..., j + 1:, j] = col
-    # L⁻¹ by forward substitution, one row at a time, then M⁻¹ = L⁻ᵀ·L⁻¹:
-    # elementwise kernels only, which a CUDA-graph capture takes as they are.
-    eye = torch.eye(n, dtype=m.dtype, device=m.device)
-    inv_l = torch.zeros_like(m)
-    for i in range(n):
-        acc = torch.sum(lower[..., i, :i, None] * inv_l[..., :i, :], dim=-2)
-        inv_l[..., i, :] = (eye[i] - acc) / lower[..., i, i:i + 1]
-    return inv_l.transpose(-1, -2) @ inv_l
 
 
 def _project_one(cam6, rot0, tvec0, point, cam_params):

@@ -43,7 +43,8 @@ def test_port_lists_the_slice_modules():
                  "sfm.pairs", "sfm.twoview", "sfm.tracks", "sfm.triangulation", "sfm.stats",
                  "sfm.pipeline", "sfm.ba", "sfm.reconstruction", "ops.cuda_nn_argmax",
                  "ops.cuda_nn_top2", "io.pairs", "io.database", "cli.pairs_from",
-                 "cli.match_features", "cli.triangulation", "cli.reconstruction"):
+                 "cli.match_features", "cli.triangulation", "cli.reconstruction",
+                 "localization.graphs", "serving.server", "cli.serve"):
         assert f"sfd2_torch.{name}" in mods, name
 
 

@@ -20,7 +20,10 @@ ties resolved by their contract (lowest index, multiset second value).
 K3 is also held inside a CUDA graph, and bundle adjustment, which replays
 its LM iteration from one, to the same iteration stepped eagerly on the
 card within 1e-4 (``index_add_``'s float atomics sum in another order on
-every run).
+every run). The localization programs (PnP-RANSAC, the refinement, LM)
+replayed from their CUDA graphs must equal the same programs run eagerly
+on the card, be captured once per key, and give the sequential results
+when four threads replay them.
 """
 
 import numpy as np
@@ -549,3 +552,120 @@ def test_batch_matcher_takes_d2net_width_on_card(cuda_device, mode):
     assert (m_k.cpu() == m_p).float().mean().item() >= 0.999
     assert (s_k.cpu() - s_p).abs().max().item() <= 1e-5
     assert (m_k >= 0).any()
+
+
+def _pnp_batch(device, rng, q_n=3, n=256, outliers=0.3, noise=0.3):
+    """Q scenes of 2D-3D matches with some outliers and padding rows, made
+    with the port's own projection: (xy, pts, cams, valid, true (q, t))."""
+    from sfd2_torch.geometry.cameras import project_points
+
+    cam = np.array([520.0, 515.0, 320.0, 240.0, -0.05, 0.01, 5e-4, -2e-4], np.float32)
+    xy = np.zeros((q_n, n, 2), np.float32)
+    pts = np.zeros((q_n, n, 3), np.float32)
+    valid = np.zeros((q_n, n), bool)
+    poses = []
+    for i in range(q_n):
+        m = int(n * rng.uniform(0.5, 0.9))
+        p = np.stack([rng.uniform(-3, 3, m), rng.uniform(-2, 2, m), rng.uniform(5, 12, m)], 1)
+        q = np.array([0.99, 0.05 * rng.normal(), 0.05 * rng.normal(), 0.03])
+        q = (q / np.linalg.norm(q)).astype(np.float32)
+        t = rng.normal(size=3).astype(np.float32) * 0.3
+        proj = project_points(torch.from_numpy(p.astype(np.float32)), torch.from_numpy(q),
+                              torch.from_numpy(t), torch.from_numpy(cam))[0].numpy()
+        proj = proj + rng.normal(size=proj.shape) * noise
+        bad = rng.random(m) < outliers
+        proj[bad] = rng.uniform([0, 0], [640, 480], (bad.sum(), 2))
+        xy[i, :m], pts[i, :m], valid[i, :m] = proj, p, True
+        poses.append((q, t))
+    t = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+    return t(xy), t(pts), t(np.tile(cam, (q_n, 1))), t(valid), poses
+
+
+def _programs(device, rng, q_n=3, n=256, h=128):
+    """A PnP-RANSAC and a refinement program on one batch."""
+    from sfd2_torch.localization.pnp import refine_pose_iterative_program
+    from sfd2_torch.localization.ransac import pnp_ransac_program, sample_minimal_sets
+
+    xy, pts, cams, valid, poses = _pnp_batch(device, rng, q_n, n)
+    gens = [torch.Generator(device=device).manual_seed(int(s)) for s in rng.integers(0, 1 << 30, q_n)]
+    idx = sample_minimal_sets(valid, h, gens)
+    q0 = torch.tensor(np.stack([q for q, _ in poses]), device=device)
+    t0 = torch.tensor(np.stack([t for _, t in poses]), device=device) + 0.05
+    return (pnp_ransac_program(xy, pts, cams, valid, idx, 4.0),
+            refine_pose_iterative_program(q0, t0, pts, xy, cams, valid, 6.0, iters=3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["pnp", "refine"])
+def test_localization_graph_matches_eager_on_card(cuda_device, kind):
+    """A PnP-RANSAC or refinement program replayed from its CUDA graphs
+    equals the same program run eagerly on the card: identical counts and
+    inlier masks, poses within 1e-5."""
+    from sfd2_torch.localization import graphs
+
+    prog = _programs(cuda_device, np.random.default_rng(1))[kind == "refine"]
+    got, ref = graphs.run(prog), graphs.run_eager(prog)
+    torch.cuda.synchronize()
+    assert torch.equal(got[:, 7:], ref[:, 7:])  # counts, flags, masks / per-iteration support
+    assert (got[:, :7] - ref[:, :7]).abs().max().item() <= 1e-5
+    assert (got[:, 7] > 50).all()  # real support in every query
+
+
+@pytest.mark.cuda
+def test_localization_graphs_captured_once_per_key_on_card(cuda_device):
+    """One capture per key (program, shapes): later calls with new data and
+    another threshold replay; a new padded size captures anew."""
+    from sfd2_torch.localization import graphs
+    from sfd2_torch.localization.ransac import pnp_ransac_core, sample_minimal_sets
+
+    rng = np.random.default_rng(2)
+    graphs.stats.update(captures=0, replays=0)
+    for i, (n, thresh) in enumerate(((320, 4.0), (320, 6.0), (320, 3.0), (640, 4.0))):
+        xy, pts, cams, valid, poses = _pnp_batch(cuda_device, rng, 2, n)
+        gens = [torch.Generator(device=cuda_device).manual_seed(i * 10 + j) for j in range(2)]
+        res = pnp_ransac_core(xy, pts, cams, valid, sample_minimal_sets(valid, 96, gens),
+                              threshold=thresh)
+        assert bool(res.success.all())
+        assert graphs.stats["captures"] == (3 if n == 320 else 6)  # 3 graph segments each
+        assert graphs.stats["replays"] == 3 * (i + 1)
+    keys = [k for k in graphs.captured_keys() if k[0][0] == "pnp"]
+    assert len({k[2][0][0] for k in keys}) >= 2
+
+
+@pytest.mark.cuda
+def test_localization_graphs_replayed_from_four_threads_on_card(cuda_device):
+    """Four threads replaying the same graphs give the sequential results."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from sfd2_torch.localization import graphs
+
+    rng = np.random.default_rng(3)
+    progs = [p for _ in range(4) for p in _programs(cuda_device, rng, q_n=2, n=192, h=64)]
+    seq = [graphs.run(p) for p in progs]
+    with ThreadPoolExecutor(max_workers=4) as pool:
+        par = list(pool.map(graphs.run, progs * 2))
+    torch.cuda.synchronize()
+    for a, b in zip(seq * 2, par):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_refine_pose_lm_runs_from_a_graph_on_card(cuda_device):
+    """``refine_pose_lm`` on CUDA tensors replays a captured graph and
+    agrees with its CPU run."""
+    from sfd2_torch.localization import graphs
+    from sfd2_torch.localization.pnp import refine_pose_lm
+
+    xy, pts, cams, valid, poses = _pnp_batch(cuda_device, np.random.default_rng(4), 3, 200,
+                                             outliers=0.0)
+    q0 = torch.tensor(np.stack([q for q, _ in poses]), device=cuda_device)
+    t0 = torch.tensor(np.stack([t for _, t in poses]), device=cuda_device) + 0.05
+    args = (q0, t0, pts, xy, cams, valid.float())
+    before = graphs.stats["replays"]
+    q, t = refine_pose_lm(*args)
+    torch.cuda.synchronize()
+    assert graphs.stats["replays"] == before + 1
+    q_c, t_c = refine_pose_lm(*(a.cpu() for a in args))
+    assert (q.cpu() - q_c).abs().max().item() <= 1e-4
+    assert (t.cpu() - t_c).abs().max().item() <= 1e-4
+    assert (t.cpu() - torch.tensor(np.stack([t for _, t in poses]))).abs().max().item() <= 0.02
