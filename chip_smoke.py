@@ -21,12 +21,21 @@ CUDA graph, ``graph_ms``), then drives the main paths:
   refinement replay CUDA graphs captured once per padded shape
   (``localization/graphs.py``), and ``pnp_graph`` holds one batch of each
   against the same programs run eagerly on the card;
+- multi-scale, labelled extraction at ``sfd2-n4096-r1600-ms`` on four
+  1600×1200 images with label maps (K1 at [4,1216,1600,3],
+  [4,1024,1344,3] and [4,896,1152,3]; labelled keypoints first);
 - serving: ``LocalizationService`` warmed up behind ``make_server`` in a
   thread, the 8 queries POSTed from 4 client threads, every answer equal
   to the engine's;
+- the localizer front end (``localize_queries``, ``write_results``) on the
+  same queries from a written model and text query/retrieval lists: poses
+  bit-identical to the engine's, recall ≥ 0.875, one run traced by
+  ``utils/profiling.trace``; and InLoc (``localize_rgbd``) of the same
+  queries against rendered RGB-D scans (K2 over the retrieved frames);
 - map building on the same scene (60 DB images, 4096 keypoints, C=128):
   covisibility pairs → ``match_pairs`` (K2) → ``triangulate_map``
-  (F-RANSAC, tracks, triangulation) → a map bundle adjustment (K3);
+  (F-RANSAC, tracks on the native union-find, held against the Python
+  rule's roots, triangulation) → a map bundle adjustment (K3);
 - ``incremental_reconstruction`` from scratch on its first 12 images,
   matched with the NNR preset (K4), with bundle adjustment (K3);
 - in both map phases every ``bundle_adjust`` call (its LM iterations
@@ -57,6 +66,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import dataclasses
 import functools
 import json
 import subprocess
@@ -74,10 +84,17 @@ import torch
 
 from sfd2_torch.geometry.cameras import Camera, canonicalize_params
 from sfd2_torch.geometry.np_pose import camera_center, pose_error
+from sfd2_torch.geometry.pose import pose_error as pose_error_tensors
+from sfd2_torch.geometry.pose import recall_at_thresholds
 from sfd2_torch.io.colmap_model import Image, read_model, write_model
 from sfd2_torch.io.feature_store import FeatureStore, ImageFeatures, MatchStore
+from sfd2_torch.io.pairs import parse_image_lists_with_intrinsics, parse_retrieval
 from sfd2_torch.localization import graphs
 from sfd2_torch.localization.engine import LocalizationEngine, LocalizerConfig
+from sfd2_torch.localization.inloc import localize_rgbd
+from sfd2_torch.localization.localizer import (LocalizerRun, load_gt_poses, localize_queries,
+                                               write_results)
+from sfd2_torch import native
 from sfd2_torch.models.sfd2 import ResSegNetV2
 from sfd2_torch.ops import cuda_build
 from sfd2_torch.ops.cuda_gather import gather_rows_cuda, graph_capture_record
@@ -95,10 +112,13 @@ from sfd2_torch.pipeline.match import MatchConfig, match_pairs
 from sfd2_torch.sfm import pipeline as sfm_pipeline
 from sfd2_torch.sfm import reconstruction as sfm_reconstruction
 from sfd2_torch.sfm.ba import BAProblem, bundle_adjust, lm_result, lm_setup
+from sfd2_torch.sfm.map_index import MapIndex
 from sfd2_torch.sfm.pairs import pairs_from_covisibility
 from sfd2_torch.sfm.pipeline import TriangulationConfig, triangulate_map
 from sfd2_torch.sfm.reconstruction import ReconstructionConfig, incremental_reconstruction
 from sfd2_torch.serving.server import LocalizationService, make_server
+from sfd2_torch.sfm.tracks import track_edges, union_find_roots_plain
+from sfd2_torch.utils.profiling import trace
 from sfd2_torch.utils.synth import build_corridor_scene
 
 # H100 SXM peaks (NVIDIA data sheet, 700 W): f32 outside the tensor cores,
@@ -257,6 +277,11 @@ def phase_build(results):
     logs.update({f"stem+{STEM_CONV1A_ONLY[0]}": log
                  for log in cuda_build.build(["stem"], STEM_CONV1A_ONLY).values()})
     stem_lib(STEM_CONV1A_ONLY)
+    # The host union-find library of track building (g++), built here so
+    # that map_build's tracks_s times the stage and not the compiler.
+    t1 = time.perf_counter()
+    native.get_lib()
+    native_build_s = time.perf_counter() - t1
     ptxas = [ln.strip() for log in logs.values() for ln in log.splitlines()
              if "registers" in ln or "spill" in ln]
     # The tensor-core kernels must hold wgmma (SASS HGMMA) instructions;
@@ -267,7 +292,8 @@ def phase_build(results):
         sass[name] = {op: dump.count(op) for op in ("HGMMA", "HMMA", "FFMA")}
         require(sass[name]["HGMMA"] > 0, f"{name}: no HGMMA instruction in its library")
     emit("build", seconds=round(time.perf_counter() - t0, 3),
-         sources=cuda_build.kernel_sources(), ptxas=ptxas, sass=sass)
+         sources=cuda_build.kernel_sources(), native_build_s=native_build_s, ptxas=ptxas,
+         sass=sass)
 
 
 STEM_CONV1A_ONLY = ("STEM_CONV1A_ONLY",)  # csrc/stem.cu built without stage B
@@ -869,15 +895,17 @@ def phase_kernel_gather(results):
     results["gather_rows"] = {s[:3]: gather_case(*s) for s in shapes}
 
 
-def textured_images(n: int, size: int, seed: int):
-    """Seeded synthetic textures: blocky colour noise at three scales."""
+def textured_images(n: int, size: int, seed: int, width: int | None = None):
+    """Seeded synthetic textures [size, width (= size), 3]: blocky colour
+    noise at three scales."""
     rng = np.random.default_rng(seed)
+    width = width or size
     out = []
     for _ in range(n):
-        img = np.zeros((size, size, 3), np.float32)
+        img = np.zeros((size, width, 3), np.float32)
         for cell, wgt in ((64, 0.5), (16, 0.3), (4, 0.2)):
-            base = rng.random((size // cell, size // cell, 3)).astype(np.float32)
-            img += wgt * np.kron(base, np.ones((cell, cell, 1), np.float32))
+            base = rng.random((-(-size // cell), -(-width // cell), 3)).astype(np.float32)
+            img += wgt * np.kron(base, np.ones((cell, cell, 1), np.float32))[:size, :width]
         out.append(np.clip(img, 0.0, 1.0))
     return out
 
@@ -924,6 +952,86 @@ def phase_extract(results, state):
          stem_shapes=[[*k, v] for k, v in fused_stem_cuda.shapes.items()],
          cpu_check=dict(keypoints=len(kc), agree=frac, desc_max_abs_err=float(derr)))
     emit("extract_profile", **device_profile(lambda: ex.extract_batch(images)))
+
+
+def label_maps_for(images, seed: int):
+    """Seeded semantic id maps: three labelled rectangles (ids 1..200) on
+    about 2.5 % of each image, 0 elsewhere, so that both blocks of the
+    labelled-first top-K hold keypoints."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for im in images:
+        h, w = im.shape[:2]
+        lab = np.zeros((h, w), np.int32)
+        for _ in range(3):
+            y, x = rng.integers(0, h * 9 // 10), rng.integers(0, w * 11 // 12)
+            lab[y: y + h // 10, x: x + w // 12] = rng.integers(1, 201)
+        out.append(lab)
+    return out
+
+
+def labelled_first(f) -> bool:
+    """No unlabelled keypoint ranks above a labelled one."""
+    lab = f.labels > 0
+    return not np.any(~lab[:-1] & lab[1:])
+
+
+def phase_extract_r1600_ms(results, state):
+    """Multi-scale, labelled r1600 extraction (conf ``sfd2-n4096-r1600-ms``:
+    scales 1, 0.8333, 0.6944) of four 1600×1200 images with label maps,
+    the full-width ResSegNetV2: K1 at [4,1216,1600,3], [4,1024,1344,3] and
+    [4,896,1152,3]. Reference on a small input: the same multi-scale,
+    labelled configuration in float32 on the card and on the CPU must find
+    the same keypoints (≥ 98 %, as ``extract``) with equal labels."""
+    conf = dataclasses.replace(EXTRACTION_CONFS["sfd2-n4096-r1600-ms"], max_keypoints=512,
+                               bf16=False)
+    small = textured_images(2, 240, SEED + 5, width=320)
+    small_lab = label_maps_for(small, SEED + 5)
+    f_gpu = Extractor(state, conf, device="cuda").extract_batch(small, small_lab)
+    f_cpu = Extractor(state, conf, device="cpu").extract_batch(small, small_lab)
+    agree, n_ref = 0, 0
+    for fg, fc in zip(f_gpu, f_cpu):
+        kg = {tuple(p): i for i, p in enumerate(np.rint(fg.keypoints * 8).astype(int))}
+        kc = {tuple(p): i for i, p in enumerate(np.rint(fc.keypoints * 8).astype(int))}
+        common = set(kg) & set(kc)
+        agree, n_ref = agree + len(common), n_ref + len(kc)
+        require(all(fg.labels[kg[p]] == fc.labels[kc[p]] for p in common),
+                "extract_r1600_ms: labels differ from the CPU's")
+    frac = agree / max(n_ref, 1)
+    require(n_ref > 0 and frac >= 0.98, f"extract_r1600_ms: {frac:.4f} of keypoints agree with CPU")
+
+    ex = Extractor(state, EXTRACTION_CONFS["sfd2-n4096-r1600-ms"], device="cuda")
+    images = textured_images(4, 1200, SEED + 6, width=1600)
+    labels = label_maps_for(images, SEED + 6)
+    ex.extract_batch(images, labels)  # warm-up: cuDNN algorithm selection per scale
+    reset_launches()
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        feats = ex.extract_batch(images, labels)
+        times.append((time.perf_counter() - t0) * 1e3 / len(images))
+    counts = read_launches()
+    results["main_path"].append(counts)
+    for f in feats:
+        require(np.isfinite(f.keypoints).all() and np.isfinite(f.descriptors).all(),
+                "extract_r1600_ms: non-finite output")
+        require(f.descriptors.shape == (len(f.keypoints), 128) and 0 < len(f.keypoints) <= 4096,
+                "extract_r1600_ms: keypoint or descriptor shape")
+        require(f.labels is not None and (f.labels > 0).any() and (f.labels == 0).any(),
+                "extract_r1600_ms: labelled and unlabelled keypoints must both be kept")
+        require(labelled_first(f),
+                "extract_r1600_ms: an unlabelled keypoint ranks above a labelled one")
+    stem = counts["fused_stem"]
+    want = {(4, 1216, 1600), (4, 1024, 1344), (4, 896, 1152)}
+    require(want <= set(stem), f"extract_r1600_ms: stem shapes {sorted(stem)} lack {sorted(want)}")
+    emit("extract_r1600_ms", images=[4, 1200, 1600, 3], scales=list(ex.cfg.scales),
+         keypoints_per_image=[len(f.keypoints) for f in feats],
+         labelled_per_image=[int((f.labels > 0).sum()) for f in feats],
+         ms_per_img=float(np.median(times)), ms_per_img_runs=times,
+         stem_shapes=[[*k, v] for k, v in stem.items()],
+         cpu_check=dict(keypoints=n_ref, agree=frac))
+    emit("extract_r1600_ms_profile",
+         **device_profile(lambda: ex.extract_batch(images, labels)))
 
 
 LOCALIZE_CONFIG = dict(max_keypoints=4096, pnp_pad_floor=4096)
@@ -1155,6 +1263,140 @@ def phase_serve(results, store, scene, seq):
     require(sum(counts["mutual_nn_match"].values()) > 0, "serve: the matcher kernel was not launched")
 
 
+def phase_localizer(results, store, scene, seq):
+    """The localizer front end on the corridor scene: the map written with
+    ``write_model`` and read back, the query list, retrieval pairs and
+    ground truth as text files, the dict-backed store; ``localize_queries``
+    then ``write_results``. Recall from ``geometry/pose.py`` ≥ 0.875 at
+    (0.25 m, 2°) and poses bit-identical to ``engine.localize``'s on the
+    same queries (the localize phase's timed pass); then one query again
+    under ``utils/profiling.trace``, which must write its trace file."""
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        mi = scene.map_index
+        write_model(mi.cameras, mi.images, mi.points3d, tmp / "sfm")
+        cam = " ".join([scene.cam_model, str(scene.width), str(scene.height),
+                        *map(str, scene.cam_params)])
+        (tmp / "queries.txt").write_text("".join(f"{q} {cam}\n" for q, _, _, _ in scene.queries))
+        (tmp / "retrieval.txt").write_text("".join(
+            f"{q} {mi.images[j].name}\n" for q, _, _, near in scene.queries for j in near))
+        (tmp / "gt.txt").write_text("".join(
+            f"{q.split('/')[-1]} " + " ".join(map(str, [*qv, *tv])) + "\n"
+            for q, qv, tv, _ in scene.queries))
+        queries = parse_image_lists_with_intrinsics(tmp / "queries.txt")
+        retrievals = parse_retrieval(tmp / "retrieval.txt")
+        gt = load_gt_poses(tmp / "gt.txt")
+        map_index = MapIndex(*read_model(tmp / "sfm"))
+        run_cfg = LocalizerRun(dataset="aachen_v1.1", init_type="sng",
+                               config=LocalizerConfig(**LOCALIZE_CONFIG))
+        engine = LocalizationEngine(map_index, store, run_cfg.config, device="cuda")
+        localize_queries(queries, retrievals, map_index, store, run_cfg, gt, engine=engine)
+        reset_launches()
+        t0 = time.perf_counter()
+        poses, failed, stats, log = localize_queries(queries, retrievals, map_index, store,
+                                                     run_cfg, gt, engine=engine)
+        wall = time.perf_counter() - t0
+        counts = read_launches()
+        results["main_path"].append(counts)
+        write_results(poses, failed, log, tmp / "out" / "poses.txt", "aachen_v1.1")
+        lines = (tmp / "out" / "poses.txt").read_text().splitlines()
+
+        est = [poses[q] for q, _ in queries]
+        ref = [gt[q.split("/")[-1]] for q, _ in queries]
+        q_err, t_err = pose_error_tensors(
+            *(torch.tensor(np.array(a), dtype=torch.float64) for a in
+              ([p[0] for p in est], [p[1] for p in est], [r["qvec"] for r in ref],
+               [r["tvec"] for r in ref])))
+        recall = recall_at_thresholds(q_err, t_err).tolist()
+        identical = all(np.array_equal(p[0], r.qvec) and np.array_equal(p[1], r.tvec)
+                        for p, r in zip(est, seq))
+
+        t0 = time.perf_counter()
+        with trace(tmp / "trace", "cuda"):
+            localize_queries(queries[:1], retrievals, map_index, store, run_cfg, gt,
+                             engine=engine)
+        trace_s = time.perf_counter() - t0
+        trace_files = sorted(p.name for p in (tmp / "trace").iterdir())
+        trace_mb = sum(p.stat().st_size for p in (tmp / "trace").iterdir()) / 2**20
+    emit("localizer", queries=len(queries), wall_s=wall, ms_per_query=wall * 1e3 / len(queries),
+         recall=recall, stats_recall=stats["recall"], failed=failed, poses_lines=len(lines),
+         identical_to_engine=identical, match_launches=sum(counts["mutual_nn_match"].values()),
+         match_shapes=[[*k, v] for k, v in counts["mutual_nn_match"].items()],
+         traced_queries=1, trace_s=trace_s, trace_files=trace_files, trace_mb=trace_mb)
+    require(recall[0] >= 0.875, f"localizer: recall@(0.25m, 2deg) {recall[0]} < 0.875")
+    require(abs(stats["recall"][0] - recall[0]) < 1e-6, "localizer: the two recalls differ")
+    require(identical, "localizer: poses differ from engine.localize's")
+    require(len(lines) == len(queries), "localizer: poses.txt is incomplete")
+    require("trace.json" in trace_files and trace_mb > 0, "localizer: no trace was written")
+    require(sum(counts["mutual_nn_match"].values()) > 0,
+            "localizer: the matcher kernel was not launched")
+
+
+INLOC_FRAMES = 5  # retrieved RGB-D frames per query
+# PnP-RANSAC's inlier threshold (px). The splatted scans blend the 3D points
+# of neighbouring splats at a tenth of the keypoints (errors of 1–12 px);
+# at 12 px those join the LO refit and move the pose by up to 0.15 m.
+INLOC_THRESH = 4.0
+
+
+def render_scan(map_index, image_id: int, width: int, height: int, rng):
+    """A synthetic depth scan of a DB image [H, W, 3]: each keypoint's 3D
+    point (where it has one) splatted over its 3×3 pixel neighbourhood,
+    NaN everywhere else, and a tenth of the splats dropped as holes."""
+    im = map_index.images[image_id]
+    scan = np.full((height, width, 3), np.nan, np.float32)
+    for (x, y), pid in zip(im.xys, im.point3D_ids):
+        if pid < 0 or rng.random() < 0.1:
+            continue
+        xi, yi = int(round(x)), int(round(y))
+        scan[max(yi - 1, 0): yi + 2, max(xi - 1, 0): xi + 2] = map_index.points3d[pid].xyz
+    return scan
+
+
+def phase_inloc(results, store, scene):
+    """RGB-D localization (``localize_rgbd``) of the 8 corridor queries,
+    each against its first ``INLOC_FRAMES`` retrieved frames with scans
+    rendered from the scene's points: every query's pose within the
+    localize bars (0.25 m, 2°), K2 launched."""
+    rng = np.random.default_rng(SEED + 7)
+    mi = scene.map_index
+    scans = {}
+    jobs = []
+    for qname, q_gt, t_gt, near in scene.queries:
+        entries = []
+        for iid in near[:INLOC_FRAMES]:
+            if iid not in scans:
+                scans[iid] = render_scan(mi, iid, scene.width, scene.height, rng)
+            f = store.read(mi.images[iid].name)
+            entries.append((f.keypoints, f.descriptors, scans[iid]))
+        fq = store.read(qname)
+        jobs.append((fq.keypoints, fq.descriptors, entries, q_gt, t_gt))
+
+    def run():
+        return [localize_rgbd(kq, dq, entries, scene.cam_model, scene.cam_params,
+                              ransac_thresh=INLOC_THRESH, device="cuda")
+                for kq, dq, entries, _, _ in jobs]
+
+    run()  # warm: captures PnP-RANSAC's graphs for these correspondence counts
+    reset_launches()
+    t0 = time.perf_counter()
+    res = run()
+    wall = time.perf_counter() - t0
+    counts = read_launches()
+    results["main_path"].append(counts)
+    errs = [pose_error(r["qvec"], r["tvec"], q_gt, t_gt) if r["success"] else (180.0, 1e9)
+            for r, (_, _, _, q_gt, t_gt) in zip(res, jobs)]
+    emit("inloc", queries=len(jobs), frames_per_query=INLOC_FRAMES, wall_s=wall,
+         ms_per_query=wall * 1e3 / len(jobs), num_inliers=[r["num_inliers"] for r in res],
+         rot_err_deg=[e[0] for e in errs], t_err_m=[e[1] for e in errs],
+         match_launches=sum(counts["mutual_nn_match"].values()),
+         match_shapes=[[*k, v] for k, v in counts["mutual_nn_match"].items()])
+    require(sum(counts["mutual_nn_match"].values()) > 0, "inloc: the matcher kernel was not launched")
+    for i, ((q_err, t_err), r) in enumerate(zip(errs, res)):
+        require(r["success"] and q_err < 2.0 and t_err < 0.25,
+                f"inloc: query {i} off by {q_err} deg, {t_err} m")
+
+
 def device_profile(fn) -> dict:
     """One traced run of fn (torch.profiler, after the timed runs): wall
     time, device busy time and idle share, kernel launches, and the kernels
@@ -1188,6 +1430,7 @@ def device_profile(fn) -> dict:
                 host_launch_calls=count(launch_keys + ("cudaGraphLaunch",)),
                 graph_launches=count(("cudaGraphLaunch",)),
                 top_kernels=[[k, round(ms, 3), n] for k, ms, n in dev[:8]],
+                gemm_in_top_kernels=[k for k, _, _ in dev[:8] if "gemm" in k.lower()],
                 top_torch_ops_self_cpu=[[k, round(ms, 3), n] for k, ms, n in host[:8]])
 
 
@@ -1223,7 +1466,8 @@ class StageTimer:
     """Seconds per stage of an entry point: for the duration of a `with`,
     the named module-level functions that the entry point calls are
     wrapped, and the card is synchronised after each call so that its work
-    is counted in the stage. The last return value of each is kept."""
+    is counted in the stage. The last arguments and return value of each
+    are kept."""
 
     def __init__(self, module, names, device):
         self.module, self.names = module, names
@@ -1231,6 +1475,7 @@ class StageTimer:
         self.seconds = collections.Counter()
         self.calls = collections.Counter()
         self.returned = {}
+        self.args = {}
         self._orig = {}
 
     def __enter__(self):
@@ -1244,6 +1489,7 @@ class StageTimer:
                 self.seconds[_name] += time.perf_counter() - t0
                 self.calls[_name] += 1
                 self.returned[_name] = out
+                self.args[_name] = args
                 return out
 
             setattr(self.module, name, timed)
@@ -1422,11 +1668,14 @@ def map_ba_problem(cameras, images, points3d, device) -> BAProblem:
         fixed_cams=torch.as_tensor(fixed, device=device))
 
 
-def run_map_build(store, scene, device, max_keypoints: int, batch_size: int = 16) -> dict:
+def run_map_build(store, scene, device, max_keypoints: int, batch_size: int = 16,
+                  check_roots: bool = True) -> dict:
     """The map-building slice (hloc/triangulation.py) on the scene's DB
     images: the reference model written with its observations stripped
     and read back, covis-20 DB pairs, NNM matching, ``triangulate_map``,
-    then a map BA (lm_iters=2, cg_iters=8). Fails on any missed bar."""
+    then a map BA (lm_iters=2, cg_iters=8). Fails on any missed bar. With
+    `check_roots` the native union-find's roots are held against the
+    Python rule's on the edges of ``build_tracks``."""
     mi = scene.map_index
     sync = device_sync(device)
     sec = {}
@@ -1476,14 +1725,30 @@ def run_map_build(store, scene, device, max_keypoints: int, batch_size: int = 16
     require(stats["mean_reprojection_error"] < 1.0,
             f"map_build: mean reprojection error {stats['mean_reprojection_error']} ≥ 1 px")
 
+    union_find = None
+    if check_roots:  # the native union-find against the Python rule, same edges
+        _, bounds, edges = track_edges(*stages.args["build_tracks"][:2])
+        t0 = time.perf_counter()
+        roots = native.union_find_roots(int(bounds[-1]), edges)
+        native_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        same = np.array_equal(roots, union_find_roots_plain(int(bounds[-1]), edges))
+        union_find = dict(nodes=int(bounds[-1]), edges=len(edges), native_s=native_s,
+                          python_rule_s=time.perf_counter() - t0, identical_roots=same)
+        require(same, "map_build: the native union-find's roots differ from the Python rule's")
+
     t0 = time.perf_counter()
     problem = map_ba_problem(cameras, images, points3d, device)
     res = _run_ba(problem, lm_iters=2, cg_iters=8)
     initial, final = float(res.initial_cost), float(res.final_cost)
     sec["bundle_adjust"] = time.perf_counter() - t0
     require(final < initial, f"map_build: BA cost {initial} → {final} did not fall")
+    report = stages.report()
     return dict(seconds={k: round(v, 3) for k, v in sec.items()},
-                triangulate_map_stages=stages.report(), pairs=len(pairs), unique_pairs=len(unique),
+                verify_s=report["geometric_verification"]["seconds"],
+                tracks_s=report["build_tracks"]["seconds"],
+                union_find=union_find,
+                triangulate_map_stages=report, pairs=len(pairs), unique_pairs=len(unique),
                 verified_pairs=len(verified), strong_pairs=len(strong), points3D=stats["num_points3D"],
                 mean_track_length=stats["mean_track_length"],
                 mean_reprojection_error_px=stats["mean_reprojection_error"],
@@ -1660,12 +1925,16 @@ def main():
     phase_kernel_match_ratio(results)
     phase_kernel_nn(results, "nn_argmax")
     phase_kernel_nn(results, "nn_top2")
-    # The main paths: extract, localize (sequential, pipelined, batched),
-    # serve, map building, reconstruction and large-bank matching, each with
-    # the counts set to 0 just before it and read just after.
+    # The main paths: extract (r1024, then multi-scale labelled r1600),
+    # localize (sequential, pipelined, batched), serve, the localizer front
+    # end, InLoc, map building, reconstruction and large-bank matching, each
+    # with the counts set to 0 just before it and read just after.
     phase_extract(results, state)
+    phase_extract_r1600_ms(results, state)
     store, scene, seq = phase_localize(results)
     phase_serve(results, store, scene, seq)
+    phase_localizer(results, store, scene, seq)
+    phase_inloc(results, store, scene)
     phase_map_build(results, store, scene)
     phase_reconstruct(results, store, scene)
     phase_match_large(results)
@@ -1685,7 +1954,8 @@ def main():
                 results[name][key] = cases[name](*key)
     # Where the map phases' time goes: a traced run and a cProfile run each.
     profile_entry("map_build_profile",
-                  lambda: run_map_build(store, scene, "cuda", max_keypoints=4096))
+                  lambda: run_map_build(store, scene, "cuda", max_keypoints=4096,
+                                        check_roots=False))
     profile_entry("reconstruct_profile",
                   lambda: run_reconstruct(store, scene, "cuda", max_keypoints=4096))
     table = kernel_table(results, shapes)

@@ -75,6 +75,12 @@ def world_to_camera(points3d: torch.Tensor, qvec: torch.Tensor,
     return torch.einsum("...ij,...nj->...ni", rot, points3d) + tvec[..., None, :]
 
 
+def camera_depths(points3d: torch.Tensor, qvec: torch.Tensor, tvec: torch.Tensor) -> torch.Tensor:
+    """Z-depth of world points in the camera frame (reference calc_depth,
+    ``it_loc/common.py:217``)."""
+    return world_to_camera(points3d, qvec, tvec)[..., 2]
+
+
 def _distort(x: torch.Tensor, y: torch.Tensor, cam: torch.Tensor):
     """Radial(+tangential) distortion in normalised coordinates; unused
     coefficients of the canonical vector are zero."""

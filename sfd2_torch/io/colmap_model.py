@@ -278,3 +278,25 @@ def write_model(cameras, images, points3d, path: os.PathLike, ext: str = ".bin")
     write_cams(cameras, path / f"cameras{ext}")
     write_imgs(images, path / f"images{ext}")
     write_pts(points3d, path / f"points3D{ext}")
+
+
+def camera_from_exif(image_path, camera_id: int = 1) -> Camera:
+    """A SIMPLE_RADIAL camera from an image's EXIF focal length (``colmap
+    feature_importer``, ``hloc/reconstruction.py:37-47``): the 35 mm
+    equivalent focal length ×max(w, h)/35 when EXIF has it, else COLMAP's
+    prior f = 1.2·max(w, h)."""
+    from PIL import Image as PILImage
+
+    exif_ifd, f35_tag = 0x8769, 0xA405  # Exif sub-IFD, FocalLengthIn35mmFilm
+    with PILImage.open(image_path) as im:
+        w, h = im.size
+        focal_px = None
+        exif = im.getexif()
+        if exif:
+            # Cameras write the tag into the Exif sub-IFD; IFD0 is the fallback.
+            f35 = exif.get_ifd(exif_ifd).get(f35_tag) or exif.get(f35_tag)
+            if f35:
+                focal_px = float(f35) / 35.0 * max(w, h)
+    if not focal_px:
+        focal_px = 1.2 * max(w, h)
+    return Camera(camera_id, "SIMPLE_RADIAL", w, h, np.array([focal_px, w / 2.0, h / 2.0, 0.0]))

@@ -1,4 +1,5 @@
-"""Weights carried across: Flax variables ↔ the port's torch state_dict.
+"""Weights carried across: Flax variables or a reference ``.pth`` → the
+port's torch state_dict.
 
 ``state_dict_from_flax`` is the exact inverse of
 ``sfd2_tpu/models/convert.py::convert_ressegnet``: Flax HWIO kernels
@@ -8,6 +9,12 @@ that module's docstring), so a reference ``.pth`` and a converted Flax
 tree load into ``ResSegNetV2`` the same way. The stem's BN-folded kernel
 weights are derived from this state_dict by
 ``sfd2_torch/ops/stem.py::repack_stem_params``.
+
+``convert_checkpoint`` reads a reference checkpoint (the shipped
+``weights/20220810_ressegnetv2_wapv2_ce_sd2mfsf_uspg.pth``, which
+``extract_localization.py:208`` loads as ``ckpt['model']``) straight into
+that state_dict, through ``convert_ressegnet``'s own copy of the key
+table.
 """
 
 from __future__ import annotations
@@ -80,11 +87,58 @@ def _strip_prefix(state: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     return out
 
 
-def load_reference_checkpoint(path) -> Dict[str, torch.Tensor]:
+def load_torch_state_dict(path) -> Dict[str, torch.Tensor]:
     """Load a reference checkpoint (.pth, ``ckpt['model']`` or a bare
-    state_dict) with the ``module.``/``model.`` prefixes stripped, ready
-    for ``ResSegNetV2.load_state_dict``."""
+    state_dict) on the CPU, with the ``module.``/``model.`` prefixes
+    stripped. Tensors only (``weights_only``)."""
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     if isinstance(ckpt, dict) and "model" in ckpt:
         ckpt = ckpt["model"]
     return _strip_prefix(ckpt)
+
+
+def _ressegnet_keys(has_stability: bool):
+    """The reference ResSegNetV2's parameter and buffer names, by unit (the
+    key table above): the names ``ResSegNetV2.load_state_dict`` takes."""
+    bn_stats = ("running_mean", "running_var", "num_batches_tracked")
+    keys = []
+    for stage in (1, 2, 3):
+        keys += [f"conv{stage}a.0.weight", f"conv{stage}a.0.bias"]
+        keys += [f"conv{stage}a.1.{b}" for b in bn_stats]
+        keys += [f"conv{stage}b.0.weight", f"conv{stage}b.0.bias"]
+        keys += [f"bn{stage}b.0.{b}" for b in bn_stats]
+    for i in range(3):
+        for j in (1, 2, 3):
+            keys.append(f"conv4.{i}.conv{j}.weight")
+            keys += [f"conv4.{i}.bn{j}.{b}" for b in ("weight", "bias", *bn_stats)]
+    for head in ("convPa", "convDa"):
+        keys += [f"{head}.0.weight", f"{head}.0.bias"]
+        keys += [f"{head}.1.{b}" for b in ("weight", "bias", *bn_stats)]
+        keys += [f"{head}.3.weight", f"{head}.3.bias"]
+    keys += ["convPb.weight", "convPb.bias", "convDb.weight", "convDb.bias"]
+    if has_stability:
+        keys += ["ConvSta.weight", "ConvSta.bias"]
+    return keys
+
+
+def convert_ressegnet(state: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A reference ResSegNet[V2] state_dict (prefixes stripped or not) →
+    the port's: float32 tensors under the key table's names, the BN
+    counters int64 (0 where the checkpoint has none). Keys outside the
+    table are dropped, as the reference's ``strict=False`` load drops
+    them; a missing key raises ``KeyError``."""
+    sd = _strip_prefix(state)
+    out: Dict[str, torch.Tensor] = OrderedDict()
+    for key in _ressegnet_keys("ConvSta.weight" in sd):
+        if key.endswith("num_batches_tracked"):
+            out[key] = sd.get(key, torch.tensor(0)).to(torch.long).reshape(())
+        elif key not in sd:
+            raise KeyError(f"reference checkpoint lacks {key}")
+        else:
+            out[key] = sd[key].to(torch.float32).contiguous()
+    return out
+
+
+def convert_checkpoint(path) -> Dict[str, torch.Tensor]:
+    """A reference ``.pth`` → the port's ResSegNetV2 state_dict."""
+    return convert_ressegnet(load_torch_state_dict(path))

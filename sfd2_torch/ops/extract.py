@@ -3,7 +3,9 @@
 Port of ``sfd2_tpu/ops/extract.py`` (``nets/extractor.py:97`` semantics:
 NMS radius 4, conf_th 0.001, border 4, top-K by score, bilinear
 descriptor lookup on the 1/4-res map with re-L2-normalisation), fixed
-shape: padded ``[B, K]`` arrays with a validity mask.
+shape: padded ``[B, K]`` arrays with a validity mask. With a label map the
+top-K is labelled-first (``nets/extractor.py:240-326``) and each keypoint
+carries its semantic id.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ class Keypoints(NamedTuple):
     scores: torch.Tensor  # [B, K]
     descriptors: torch.Tensor  # [B, K, C] L2-normalised
     valid: torch.Tensor  # [B, K] bool
+    labels: Optional[torch.Tensor] = None  # [B, K] int32 semantic ids (0 = none)
 
 
 def sample_descriptors(desc_map: torch.Tensor, xy: torch.Tensor, full_hw) -> torch.Tensor:
@@ -57,16 +60,22 @@ def _top_k_nms_cells(masked: torch.Tensor, k: int, h: int, w: int):
 
 def extract_keypoints(heatmap: torch.Tensor, desc_map: torch.Tensor,
                       stability: Optional[torch.Tensor] = None,
-                      sizes: Optional[torch.Tensor] = None, *,
+                      sizes: Optional[torch.Tensor] = None,
+                      label_map: Optional[torch.Tensor] = None, *,
                       max_keypoints: int = 4096, conf_threshold: float = 0.001,
                       nms_radius: int = 4, border: int = 4) -> Keypoints:
     """Full extraction over a batch.
 
     heatmap [B, H, W]; desc_map [B, h, w, C]; stability [B, H, W]
     multiplier; sizes [B, 2] true (w, h) of zero-padded images (the border
-    filter applies at the true edge, padding never takes top-K slots).
-    Rows are sorted by descending score. The labeled-first top-K of the JAX
-    version (``label_map``) is not ported yet."""
+    filter applies at the true edge, padding never takes top-K slots);
+    label_map [B, H, W] int32 semantic ids (0 = unlabelled). With a label
+    map the top-K is labelled-first: every labelled candidate ranks above
+    every unlabelled one, each block sorted by score (one top-K on the
+    composite key score + (max score + 1) for labelled pixels, the max
+    taken over the whole batch in float32), and ``labels`` holds each
+    keypoint's id. Rows are sorted by descending score (by descending key
+    with a label map)."""
     b, h, w = heatmap.shape
     k = max_keypoints
     dev = heatmap.device
@@ -87,7 +96,12 @@ def extract_keypoints(heatmap: torch.Tensor, desc_map: torch.Tensor,
     keep = (scores > conf_threshold) & border_ok
     masked = torch.where(keep, scores, float("-inf")).reshape(b, h * w)
 
-    if h % 4 == 0 and w % 4 == 0 and nms_radius >= 3 and k <= (h // 4) * (w // 4):
+    if label_map is not None:
+        labeled = (label_map > 0).reshape(b, h * w)
+        boost = torch.amax(torch.where(torch.isfinite(masked), masked, 0.0)) + 1.0
+        _, top_idx = torch.topk(torch.where(labeled, masked + boost, masked), k, dim=-1)
+        top_scores = torch.gather(masked, 1, top_idx)
+    elif h % 4 == 0 and w % 4 == 0 and nms_radius >= 3 and k <= (h // 4) * (w // 4):
         top_scores, top_idx = _top_k_nms_cells(masked, k, h, w)
     else:
         top_scores, top_idx = torch.topk(masked, k, dim=-1)
@@ -97,4 +111,8 @@ def extract_keypoints(heatmap: torch.Tensor, desc_map: torch.Tensor,
 
     descs = torch.stack([sample_descriptors(desc_map[i], xy[i], (h, w)) for i in range(b)])
     descs = torch.where(valid[..., None], descs, 0.0)
-    return Keypoints(xy=xy, scores=top_scores, descriptors=descs, valid=valid)
+    labels = None
+    if label_map is not None:
+        labels = torch.gather(label_map.reshape(b, h * w).to(torch.int32), 1, top_idx)
+        labels = torch.where(valid, labels, 0)
+    return Keypoints(xy=xy, scores=top_scores, descriptors=descs, valid=valid, labels=labels)

@@ -5,11 +5,12 @@ COLMAP's ``point_triangulator`` (``hloc/triangulation.py:129-147``) —
 chaining verified two-view matches into multi-view tracks. Union-find
 with path halving over (image, keypoint) observation nodes; a track that
 observes one image twice keeps the first observation (COLMAP's conflict
-handling). The JAX package runs the union-find in an optional C++
-helper (union by rank) and falls back to a Python loop without ranks,
-whose roots, and so the order of the tracks, differ; the port runs the
-C++ helper's rule in Python, so it lists the tracks as the JAX package
-does with its helper.
+handling). Both packages unite by rank in a C++ helper; the port builds
+its own copy (``sfd2_torch/native``, ``csrc/tracks.cpp``) and raises if
+it cannot, where the JAX package falls back to a Python loop without
+ranks, whose roots, and so the order of the tracks, differ.
+``UnionFind`` / ``union_find_roots_plain`` run the helper's rule in
+Python: the plain version the tests hold the helper against.
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ from __future__ import annotations
 from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
+
+from sfd2_torch.native import union_find_roots
 
 
 class UnionFind:
@@ -47,13 +50,28 @@ class UnionFind:
             rank[ra] += 1
 
 
-def union_find_roots(n_nodes: int, edges: np.ndarray) -> np.ndarray:
-    """Root id per node after uniting the [E, 2] edges in order."""
+def union_find_roots_plain(n_nodes: int, edges: np.ndarray) -> np.ndarray:
+    """Root id per node after uniting the [E, 2] edges in order (Python)."""
     dsu = UnionFind(n_nodes)
     union, find = dsu.union, dsu.find
     for a, b in np.asarray(edges, np.int64).reshape(-1, 2).tolist():
         union(a, b)
     return np.fromiter((find(i) for i in range(n_nodes)), np.int64, n_nodes)
+
+
+def track_edges(num_keypoints: Dict[int, int],
+                verified_matches: Sequence[Tuple[int, int, np.ndarray]]):
+    """The union-find input of ``build_tracks``: (sorted image ids, node
+    bounds [I + 1] (image i owns nodes bounds[i]..bounds[i+1]), int64
+    edges [E, 2] between global keypoint nodes)."""
+    image_ids = sorted(num_keypoints.keys())
+    counts = np.array([num_keypoints[iid] for iid in image_ids], np.int64)
+    bounds = np.concatenate([[0], np.cumsum(counts)])
+    offsets = dict(zip(image_ids, bounds[:-1].tolist()))
+    edge_list = [np.asarray(m, np.int64) + np.array([offsets[a], offsets[b]], np.int64)
+                 for a, b, m in verified_matches if len(m)]
+    edges = np.concatenate(edge_list) if edge_list else np.zeros((0, 2), np.int64)
+    return image_ids, bounds, edges
 
 
 def build_tracks(num_keypoints: Dict[int, int],
@@ -71,15 +89,8 @@ def build_tracks(num_keypoints: Dict[int, int],
     observation per image (its lowest keypoint index), in order of their
     union-find root.
     """
-    image_ids = sorted(num_keypoints.keys())
-    counts = np.array([num_keypoints[iid] for iid in image_ids], np.int64)
-    bounds = np.concatenate([[0], np.cumsum(counts)])
-    offsets = dict(zip(image_ids, bounds[:-1].tolist()))
+    image_ids, bounds, edges = track_edges(num_keypoints, verified_matches)
     total = int(bounds[-1])
-
-    edge_list = [np.asarray(m, np.int64) + np.array([offsets[a], offsets[b]], np.int64)
-                 for a, b, m in verified_matches if len(m)]
-    edges = np.concatenate(edge_list) if edge_list else np.zeros((0, 2), np.int64)
     roots = union_find_roots(total, edges)
 
     # Nodes grouped by root (groups in root order, nodes ascending inside a

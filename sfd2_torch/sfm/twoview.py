@@ -76,17 +76,33 @@ def fit_fundamental(xy1, xy2, weights=None):
     return f / torch.where(torch.abs(f[2, 2]) < 1e-12, torch.ones_like(f[2, 2]), f[2, 2])
 
 
+def _sampson_terms(f, xy1, xy2):
+    """(x2ᵀF x1)² and the Sampson denominator, written out over the nine
+    entries of F against the 2-D points (the homogeneous 1 implicit), with
+    fused multiply-adds and in place, so each full-size temporary is one
+    [..., N] tensor: f [..., 3, 3], xy1/xy2 [..., N, 2] → two [..., N]
+    tensors."""
+    fe = [[f[..., r, c, None] for c in range(3)] for r in range(3)]
+    x1, y1, x2, y2 = xy1[..., 0], xy1[..., 1], xy2[..., 0], xy2[..., 1]
+
+    def affine(a, b, c, u, v):  # a·u + b·v + c
+        return torch.addcmul(c, a, u).addcmul_(b, v)
+
+    fx0 = affine(fe[0][0], fe[0][1], fe[0][2], x1, y1)  # F · x1
+    fx1 = affine(fe[1][0], fe[1][1], fe[1][2], x1, y1)
+    e = torch.addcmul(affine(fe[2][0], fe[2][1], fe[2][2], x1, y1), x2, fx0).addcmul_(y2, fx1)
+    den = fx0.square_().addcmul_(fx1, fx1)
+    ft = affine(fe[0][0], fe[1][0], fe[2][0], x2, y2)  # Fᵀ · x2
+    den.addcmul_(ft, ft)
+    ft = affine(fe[0][1], fe[1][1], fe[2][1], x2, y2)
+    return e.square_(), den.addcmul_(ft, ft)
+
+
 def sampson_error(f, xy1, xy2):
     """First-order geometric (Sampson) distance per correspondence:
     f [..., 3, 3], xy1/xy2 [..., N, 2] (leading dims broadcast) → [..., N]."""
-    ones = torch.ones_like(xy1[..., :1])
-    h1 = torch.cat([xy1, ones], dim=-1)
-    h2 = torch.cat([xy2, ones], dim=-1)
-    fx1 = h1 @ f.transpose(-1, -2)  # F · x1 per row
-    ftx2 = h2 @ f  # Fᵀ · x2 per row
-    num = torch.sum(h2 * fx1, dim=-1) ** 2
-    den = fx1[..., 0] ** 2 + fx1[..., 1] ** 2 + ftx2[..., 0] ** 2 + ftx2[..., 1] ** 2
-    return num / torch.clamp(den, min=1e-12)
+    num, den = _sampson_terms(f, xy1, xy2)
+    return num.div_(den.clamp_(min=1e-12))
 
 
 def _sym3_smallest_eigvec(a):
@@ -208,8 +224,11 @@ def sample_eight(valid: torch.Tensor, num_hypotheses: int,
     return torch.topk(g, 8, dim=-1).indices
 
 
-def _msac(errs, valid, thr2):
-    return torch.sum(torch.where(valid, torch.clamp(errs, max=thr2), thr2), dim=-1)
+def _msac(f, xy1, xy2, valid, thr2):
+    """MSAC score of F against the matches: the Sampson errors clamped at
+    thr2 (thr2 for padding) and summed over N, from the element-wise terms."""
+    errs = sampson_error(f, xy1, xy2).clamp_(max=thr2)
+    return torch.sum(errs.masked_fill_(~valid, thr2), dim=-1)
 
 
 def verify_fundamental_ransac_core(xy1, xy2, valid, sample_idx, threshold: float = 4.0,
@@ -229,7 +248,7 @@ def verify_fundamental_ransac_core(xy1, xy2, valid, sample_idx, threshold: float
     # counts. Scored a few pairs at a time to bound the [B, H, N] temporaries.
     step = max(1, _SCORE_CHUNK // max(h * xy1.shape[1], 1))
     msac = torch.cat([
-        _msac(sampson_error(fs[i:i + step], xy1[i:i + step, None], xy2[i:i + step, None]),
+        _msac(fs[i:i + step], xy1[i:i + step, None], xy2[i:i + step, None],
               valid[i:i + step, None], thr2)
         for i in range(0, b, step)])
     finite = torch.isfinite(fs).flatten(-2).all(-1)
@@ -238,13 +257,13 @@ def verify_fundamental_ransac_core(xy1, xy2, valid, sample_idx, threshold: float
 
     # Local optimisation: iterative least-squares re-fit on soft-weighted
     # inliers, accepted on MSAC improvement.
-    cur = _msac(sampson_error(f, xy1, xy2), valid, thr2)
+    cur = _msac(f, xy1, xy2, valid, thr2)
     for _ in range(4):
         e = sampson_error(f, xy1, xy2)
         wts = torch.where((e <= thr2) & valid, 1.0 / (1.0 + e / thr2), 0.0).to(xy1.dtype)
         f_ls = _fit_fundamental_lanes(xy1, xy2, wts)
         ok = torch.isfinite(f_ls).flatten(-2).all(-1)
-        cand = torch.where(ok, _msac(sampson_error(f_ls, xy1, xy2), valid, thr2), torch.inf)
+        cand = torch.where(ok, _msac(f_ls, xy1, xy2, valid, thr2), torch.inf)
         take = cand < cur
         f = torch.where(take[:, None, None], f_ls, f)
         cur = torch.minimum(cand, cur)

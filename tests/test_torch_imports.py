@@ -44,7 +44,10 @@ def test_port_lists_the_slice_modules():
                  "sfm.pipeline", "sfm.ba", "sfm.reconstruction", "ops.cuda_nn_argmax",
                  "ops.cuda_nn_top2", "io.pairs", "io.database", "cli.pairs_from",
                  "cli.match_features", "cli.triangulation", "cli.reconstruction",
-                 "localization.graphs", "serving.server", "cli.serve"):
+                 "localization.graphs", "serving.server", "cli.serve", "native",
+                 "geometry.pose", "utils.profiling", "localization.localizer",
+                 "cli.localizer", "localization.inloc", "cli.extract_features", "io.nvm",
+                 "cli.colmap_from_nvm"):
         assert f"sfd2_torch.{name}" in mods, name
 
 
@@ -64,10 +67,11 @@ def test_import_builds_nothing():
     code = (
         "import importlib, json\n"
         f"for m in {_port_modules()!r}: importlib.import_module(m)\n"
+        "from sfd2_torch import native\n"
         "from sfd2_torch.ops import cuda_build\n"
-        "print(json.dumps(sorted(cuda_build._libs)))\n"
+        "print(json.dumps(sorted(cuda_build._libs) + ([] if native._lib is None else ['tracks'])))\n"
     )
-    assert _run(code) == []  # no kernel library was built or loaded
+    assert _run(code) == []  # no kernel or host library was built or loaded
 
 
 def test_kernel_sources_are_in_the_package():

@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from sfd2_torch.models.convert import load_reference_checkpoint, state_dict_from_flax
+from sfd2_torch.models.convert import load_torch_state_dict, state_dict_from_flax
 from sfd2_torch.models.sfd2 import ResSegNet as TorchResSegNet
 from sfd2_torch.models.sfd2 import ResSegNetV2 as TorchResSegNetV2
 from sfd2_torch.ops.stem import fused_stem_apply, repack_stem_params
@@ -133,7 +133,7 @@ def test_load_reference_checkpoint_strips_prefix(v2, tmp_path):
     wrapped = {"model": {f"module.{k}": v for k, v in port.state_dict().items()}}
     path = tmp_path / "ref.pth"
     torch.save(wrapped, path)
-    sd = load_reference_checkpoint(path)
+    sd = load_torch_state_dict(path)
     fresh = TorchResSegNetV2()
     fresh.load_state_dict(sd)  # strict: every key present and named right
     for k, v in port.state_dict().items():

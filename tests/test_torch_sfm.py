@@ -28,6 +28,7 @@ from sfd2_torch.sfm import tracks as ttracks
 from sfd2_torch.sfm.pipeline import TriangulationConfig, geometric_verification
 from sfd2_torch.sfm.triangulation import triangulate_tracks
 from sfd2_torch.sfm.twoview import (
+    _msac,
     _rank2_project,
     _sym3_smallest_eigvec,
     decompose_essential,
@@ -254,6 +255,74 @@ def test_fundamental_helpers_match_jax(rng):
                                np.asarray(jtv.sampson_error(jnp.asarray(f_j), jnp.asarray(xy1),
                                                             jnp.asarray(xy2))),
                                rtol=1e-3, atol=1e-3)
+
+
+def _sampson_matmul(f, xy1, xy2):
+    """The matmul form of the Sampson error (homogeneous copies and
+    [..., N, 3] products), the reference expression of the element-wise
+    ``sampson_error``."""
+    ones = torch.ones_like(xy1[..., :1])
+    h1, h2 = torch.cat([xy1, ones], dim=-1), torch.cat([xy2, ones], dim=-1)
+    fx1 = h1 @ f.transpose(-1, -2)
+    ftx2 = h2 @ f
+    num = torch.sum(h2 * fx1, dim=-1) ** 2
+    den = fx1[..., 0] ** 2 + fx1[..., 1] ** 2 + ftx2[..., 0] ** 2 + ftx2[..., 1] ** 2
+    return num / torch.clamp(den, min=1e-12)
+
+
+def _f_batch(rng, lead):
+    """Fundamental matrices [*lead, 3, 3] of image-scale pairs, and matches
+    [B, 1, N, 2] near them, float64."""
+    f = rng.normal(size=(*lead, 3, 3))
+    f[..., 2, :] *= 100.0
+    f[..., :, 2] *= 100.0
+    xy1 = rng.uniform(0, 640, size=(lead[0], 1, 300, 2))
+    xy2 = xy1 + rng.normal(size=xy1.shape) * 3.0
+    return f, xy1, xy2
+
+
+@pytest.mark.parametrize("lead", [(1, 1), (3, 5)])
+def test_sampson_elementwise_matches_matmul_and_jax_float64(rng, lead):
+    f, xy1, xy2 = _f_batch(rng, lead)
+    ft, x1, x2 = (torch.from_numpy(a) for a in (f, xy1, xy2))
+    got = sampson_error(ft, x1, x2)
+    assert got.dtype == torch.float64 and got.shape == (*lead, 300)
+    ref = _sampson_matmul(ft, x1, x2)
+    scale = ref.abs().max().item()
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-12, atol=1e-12 * scale)
+    with jax.enable_x64(True):
+        for b in range(lead[0]):
+            for h in range(lead[1]):
+                j = np.asarray(jtv.sampson_error(jnp.asarray(f[b, h]), jnp.asarray(xy1[b, 0]),
+                                                 jnp.asarray(xy2[b, 0])))
+                np.testing.assert_allclose(got[b, h].numpy(), j, rtol=1e-12,
+                                           atol=1e-12 * scale)
+
+
+def test_fused_msac_matches_the_matmul_form_float64(rng):
+    f, xy1, xy2 = _f_batch(rng, (2, 4))
+    ft, x1, x2 = (torch.from_numpy(a) for a in (f, xy1, xy2))
+    valid = torch.from_numpy(rng.random((2, 1, 300)) < 0.8)
+    thr2 = 16.0
+    got = _msac(ft, x1, x2, valid, thr2)
+    ref = torch.sum(torch.where(valid, torch.clamp(_sampson_matmul(ft, x1, x2), max=thr2), thr2),
+                    dim=-1)
+    assert got.shape == (2, 4)
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-12, atol=1e-12)
+    assert (got < thr2 * 300).any()  # some errors fall under the clamp
+
+
+def test_twoview_scoring_has_no_matmul():
+    """The Sampson error and MSAC score are written out over F's entries:
+    no `@`/matmul and no homogeneous copy of the points in their source."""
+    import inspect
+
+    from sfd2_torch.sfm import twoview
+
+    src = "".join(inspect.getsource(fn) for fn in (twoview._sampson_terms,
+                                                   twoview.sampson_error, twoview._msac))
+    for banned in ("@", "matmul", "torch.cat", "einsum", "bmm"):
+        assert banned not in src, banned
 
 
 def test_essential_decomposition_matches_jax(scene):
