@@ -47,7 +47,19 @@ CUDA graph, ``graph_ms``), then drives the main paths:
   the JAX package sends to its tiled kernels at that width), pairs (0,1),
   (0,2), (1,2), with NNM (K5) and then NNR (K6), held against the plain
   versions on sampled rows and columns and against the planted true
-  matches.
+  matches;
+- the baseline extractors (``pipeline/extractors.py::dynamic_load(...,
+  device="cuda")``, seeded full-width networks): SuperPoint, R2D2, D2-Net,
+  SGD2 and SFD2 (K1) on 8 textured 1024×768 images (images 1–3 crops of
+  one texture moved by (64, 32) px each), CAPS's network at SuperPoint's
+  keypoints (``caps_describe``; its OpenCV detector is host-only), each
+  network also on a 192×256 crop on the CPU with the same weights in
+  float32; then ``match_pairs`` over the 28 pairs: SuperPoint NNM (K2,
+  C=256), R2D2 NNM (K2, C=128), D2-Net NNR (K4, C=512), SuperPoint NNR
+  (K4, C=256), and the planted shift recovered (SuperPoint NNM ≥ 95 %);
+- DIR retrieval: ``make_dir`` (ResNet-101 GeM, 2048-D, float32) on 16
+  DB images and 8 noisy copies as queries, ``pairs_from_retrieval`` (each
+  query's first pair its source) and ``pca_whiten``.
 Every kernel's launch count and launch-shape record is set to 0 just
 before each path and read just after. A shape a main path launched that
 the kernel phases did not compare is compared afterwards, so every launch
@@ -95,6 +107,8 @@ from sfd2_torch.localization.inloc import localize_rgbd
 from sfd2_torch.localization.localizer import (LocalizerRun, load_gt_poses, localize_queries,
                                                write_results)
 from sfd2_torch import native
+from sfd2_torch.models.baselines import CapsResUNet
+from sfd2_torch.models.retrieval import pca_whiten
 from sfd2_torch.models.sfd2 import ResSegNetV2
 from sfd2_torch.ops import cuda_build
 from sfd2_torch.ops.cuda_gather import gather_rows_cuda, graph_capture_record
@@ -108,12 +122,13 @@ from sfd2_torch.ops.matching import (mutual_nn_match, mutual_nn_ratio_match, nn_
                                     tiled_route)
 from sfd2_torch.ops.stem import fused_stem_apply, repack_stem_params, unpack_stem_params
 from sfd2_torch.pipeline.extract import EXTRACTION_CONFS, ExtractionConfig, Extractor
+from sfd2_torch.pipeline.extractors import BaselineConfig, build_model, caps_describe, dynamic_load
 from sfd2_torch.pipeline.match import MatchConfig, match_pairs
 from sfd2_torch.sfm import pipeline as sfm_pipeline
 from sfd2_torch.sfm import reconstruction as sfm_reconstruction
 from sfd2_torch.sfm.ba import BAProblem, bundle_adjust, lm_result, lm_setup
 from sfd2_torch.sfm.map_index import MapIndex
-from sfd2_torch.sfm.pairs import pairs_from_covisibility
+from sfd2_torch.sfm.pairs import pairs_from_covisibility, pairs_from_retrieval
 from sfd2_torch.sfm.pipeline import TriangulationConfig, triangulate_map
 from sfd2_torch.sfm.reconstruction import ReconstructionConfig, incremental_reconstruction
 from sfd2_torch.serving.server import LocalizationService, make_server
@@ -152,9 +167,11 @@ KERNELS = {
 
 def emit(phase: str, **fields):
     """One JSON line; ``peak_mem_mb`` is the most device memory allocated
-    since the previous line (the peak is reset after each)."""
+    since the previous line (the peak is reset after each), or more where
+    the phase passes a larger peak it read before resetting it itself."""
     if torch.cuda.is_initialized():
-        fields["peak_mem_mb"] = torch.cuda.max_memory_allocated() / 2**20
+        fields["peak_mem_mb"] = max(fields.get("peak_mem_mb", 0.0),
+                                    torch.cuda.max_memory_allocated() / 2**20)
         torch.cuda.reset_peak_memory_stats()
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
@@ -848,6 +865,300 @@ def phase_match_large(results):
         emit("match_large", **out)
         del store, desc, d0, d1
         torch.cuda.empty_cache()
+
+
+# The baselines: the registry's networks at full width on the
+# ``sfd2-n4096-r1024`` conf's size, with max_keypoints and conf_threshold
+# as cli/extract_features.py passes them for that conf; their features
+# matched over every pair by K2 (NNM) and K4 (NNR) at 256, 128 and 512 wide.
+BASELINE_NETS = ("superpoint", "r2d2", "d2net", "sgd2", "sfd2")
+BASELINE_MATCHES = (("superpoint", "NNM", "mutual_nn_match", 256),
+                    ("r2d2", "NNM", "mutual_nn_match", 128),
+                    ("d2net", "NNR", "mutual_nn_ratio_match", 512),
+                    ("superpoint", "NNR", "mutual_nn_ratio_match", 256))
+SHIFT = (64, 32)  # (x, y) px between consecutive crops: a multiple of every stride
+SHIFT_MARGIN = 64  # px from the edges: beyond every network's reach of the border
+
+
+def shifted_images(h: int, w: int, seed: int):
+    """8 textured images [h, w, 3]: 0–3 crops of one larger texture, image i
+    at offset i·SHIFT, so image i+1 is image i moved by −SHIFT; 4–7
+    unrelated."""
+    big = textured_images(1, h + 3 * SHIFT[1], seed, width=w + 3 * SHIFT[0])[0]
+    crops = [np.ascontiguousarray(big[i * SHIFT[1]: i * SHIFT[1] + h,
+                                      i * SHIFT[0]: i * SHIFT[0] + w]) for i in range(4)]
+    return crops + textured_images(4, h, seed + 1, width=w)
+
+
+def keypoint_agreement(f_dev, f_cpu) -> dict:
+    """Share of identical keypoints (positions to 1/8 px) of two runs, over
+    the larger set, and the largest descriptor difference on them."""
+    def key(f):
+        return {tuple(p): i for i, p in enumerate(np.rint(f.keypoints * 8).astype(int).tolist())}
+
+    kd, kc = key(f_dev), key(f_cpu)
+    common = sorted(set(kd) & set(kc))
+    err = max((float(np.abs(f_dev.descriptors[kd[p]] - f_cpu.descriptors[kc[p]]).max())
+               for p in common), default=0.0)
+    return dict(keypoints=len(kc), agree=len(common) / max(len(kd), len(kc), 1),
+                desc_max_abs_err=err)
+
+
+def shift_recovery(f0, f1, matches0, hw) -> dict:
+    """The planted shift between images 0 and 1: of image 0's keypoints
+    whose shifted position is a keypoint of image 1, both at least
+    SHIFT_MARGIN px inside the edges of their images (there each network
+    sees the same pixels in both), the share matched to that keypoint."""
+    h, w = hw
+    at1 = {tuple(p): i for i, p in enumerate(np.rint(f1.keypoints * 2).astype(int).tolist())}
+
+    def inside(p):
+        return ((p[:, 0] >= SHIFT_MARGIN) & (p[:, 0] < w - SHIFT_MARGIN)
+                & (p[:, 1] >= SHIFT_MARGIN) & (p[:, 1] < h - SHIFT_MARGIN))
+
+    pts = f0.keypoints
+    shifted = pts - np.array(SHIFT, np.float32)
+    moved = np.rint(shifted * 2).astype(int).tolist()
+    pairs = [(i0, at1[tuple(moved[i0])]) for i0 in np.nonzero(inside(pts) & inside(shifted))[0]
+             if tuple(moved[i0]) in at1]
+    hit = sum(int(matches0[i0] == i1) for i0, i1 in pairs)
+    return dict(shift_candidates=len(pairs), shift_recovered=hit,
+                shift_share=hit / max(len(pairs), 1))
+
+
+def timed_per_image(fn, images) -> tuple:
+    """fn on each image (or argument tuple) after one warm-up call on the
+    first: (outputs, ms per image).
+    Each call ends in a fetch to the host, so the host clock holds the
+    device's work."""
+    fn(images[0])
+    out, times = [], []
+    for im in images:
+        t0 = time.perf_counter()
+        out.append(fn(im))
+        times.append((time.perf_counter() - t0) * 1e3)
+    return out, times
+
+
+def peak_mb(device) -> float:
+    return torch.cuda.max_memory_allocated() / 2**20 if device.type == "cuda" else 0.0
+
+
+def reset_peak(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def run_baselines(results, device, h: int = 768, w: int = 1024, max_keypoints: int = 4096,
+                  small=(192, 256), profile: bool = False) -> dict:
+    """The baselines path on `device`: every network of BASELINE_NETS and
+    CAPS's descriptor on 8 images of h×w, then match_pairs over the 28
+    pairs for each entry of BASELINE_MATCHES. Each network is first held
+    against itself on the CPU on one small crop (same seeded weights,
+    float32). Every extraction and every matching run is a main path (the
+    counts set to 0 before it and read after). `profile`: one traced run of
+    each network on image 0 after its timed runs (``device_profile``, under
+    ``profiles``). Returns the phase's record; the checks are the
+    caller's."""
+    dev = torch.device(device)
+    cfg = BaselineConfig(max_keypoints=max_keypoints, conf_threshold=0.001)
+    images = shifted_images(h, w, SEED + 20)
+    names = [f"baseline/{i}.png" for i in range(len(images))]
+    crop = np.ascontiguousarray(images[0][: small[0], : small[1]])
+    out = dict(images=[len(images), h, w, 3], max_keypoints=max_keypoints, shift=list(SHIFT),
+               cpu_check_image=list(small), nets={}, match={}, profiles={})
+    feats, stores = {}, {}
+    phase_peak = 0.0
+    for net in BASELINE_NETS:
+        f32 = {"bf16": False} if net == "sfd2" else {}
+        f_dev = dynamic_load(net, cfg, device=dev, seed=SEED, **f32)(crop)
+        f_cpu = dynamic_load(net, cfg, device="cpu", seed=SEED, **f32)(crop)
+        cpu_check = keypoint_agreement(f_dev, f_cpu)
+        reset_peak(dev)
+        extract = dynamic_load(net, cfg, device=dev, seed=SEED)
+        reset_launches()
+        feats[net], times = timed_per_image(extract, images)
+        counts = read_launches()
+        results["main_path"].append(counts)
+        if profile:
+            out["profiles"][net] = device_profile(lambda: extract(images[0]))
+        del extract
+        store = stores[net] = FeatureStore()
+        for name, f in zip(names, feats[net]):
+            store.write(name, ImageFeatures(f.keypoints, f.descriptors, f.scores,
+                                            np.array([w, h])))
+        norms = np.concatenate([np.linalg.norm(f.descriptors, axis=1) for f in feats[net]])
+        out["nets"][net] = dict(
+            ms_per_img=float(np.median(times)), ms_per_img_runs=times, peak_mem_mb=peak_mb(dev),
+            keypoints_per_image=[len(f.keypoints) for f in feats[net]],
+            desc_dim=int(feats[net][0].descriptors.shape[1]),
+            finite=bool(all(np.isfinite(f.descriptors).all() and np.isfinite(f.scores).all()
+                            and np.isfinite(f.keypoints).all() for f in feats[net])),
+            max_unit_norm_err=float(np.abs(norms - 1).max()), cpu_check=cpu_check,
+            launches=launches_by_shape(counts))
+        phase_peak = max(phase_peak, peak_mb(dev))
+
+    # CAPS: the network on the device at SuperPoint's keypoints (its
+    # detector is OpenCV SIFT on the host).
+    caps = build_model(CapsResUNet(), device=dev, seed=SEED)
+    caps_cpu = build_model(CapsResUNet(), device="cpu", seed=SEED)
+    xy_small = dynamic_load("superpoint", cfg, device="cpu", seed=SEED)(crop).keypoints
+    d_dev, d_cpu = caps_describe(caps, crop, xy_small), caps_describe(caps_cpu, crop, xy_small)
+    del caps_cpu
+    reset_peak(dev)
+    at_sp = [(im, f.keypoints) for im, f in zip(images, feats["superpoint"])]
+    descs, times = timed_per_image(lambda a: caps_describe(caps, *a), at_sp)
+    if profile:
+        out["profiles"]["caps"] = device_profile(
+            lambda: caps_describe(caps, *at_sp[0]))
+    out["nets"]["caps"] = dict(
+        ms_per_img=float(np.median(times)), ms_per_img_runs=times, peak_mem_mb=peak_mb(dev),
+        keypoints_per_image=[len(d) for d in descs], desc_dim=int(descs[0].shape[1]),
+        finite=bool(all(np.isfinite(d).all() for d in descs)),
+        shapes_ok=all(d.shape == (len(f.keypoints), 256)
+                      for d, f in zip(descs, feats["superpoint"])),
+        cpu_check=dict(keypoints=len(xy_small),
+                       desc_max_abs_err=float(np.abs(d_dev - d_cpu).max()) if len(xy_small)
+                       else 0.0))
+    phase_peak = max(phase_peak, peak_mb(dev))
+    del caps
+
+    pairs = [(names[i], names[j]) for i in range(len(names)) for j in range(i + 1, len(names))]
+    for net, mode, kernel, c in BASELINE_MATCHES:
+        matches = MatchStore()
+        reset_peak(dev)
+        reset_launches()
+        t0 = time.perf_counter()
+        n = match_pairs(stores[net], pairs, matches,
+                        MatchConfig(matcher=mode, max_keypoints=max_keypoints), device=dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = read_launches()
+        results["main_path"].append(counts)
+        m0, _ = matches.read(names[0], names[1])
+        per_pair = [int((matches.read(a, b)[0] >= 0).sum()) for a, b in pairs]
+        out["match"][f"{net}_{mode}"] = dict(
+            kernel=kernel, desc_dim=c, pairs=n, match_pairs_s=seconds,
+            matches_per_pair_mean=float(np.mean(per_pair)), peak_mem_mb=peak_mb(dev),
+            launches=launches_by_shape(counts),
+            **shift_recovery(feats[net][0], feats[net][1], m0, (h, w)))
+        phase_peak = max(phase_peak, peak_mb(dev))
+    out["peak_mem_mb"] = phase_peak
+    return out
+
+
+def phase_baselines(results):
+    """The baseline extractors on the card (``dynamic_load(..., device=
+    "cuda")``, seeded full-width networks), CAPS's ``caps_describe``, and
+    their features matched by K2 and K4; each network also on a small crop
+    on the CPU with the same weights."""
+    out = run_baselines(results, "cuda", profile=True)
+    profiles = out.pop("profiles")
+    emit("baselines", **out)
+    emit("baselines_profile", **profiles)
+    for net, rec in out["nets"].items():
+        cc = rec["cpu_check"]
+        require(rec["finite"] and min(rec["keypoints_per_image"]) > 0,
+                f"baselines {net}: non-finite output or an image without keypoints")
+        require(rec["desc_dim"] == {"superpoint": 256, "d2net": 512, "caps": 256}.get(net, 128),
+                f"baselines {net}: descriptor width {rec['desc_dim']}")
+        if net == "caps":
+            require(rec["shapes_ok"], "baselines caps: descriptor shape")
+        else:
+            require(rec["max_unit_norm_err"] <= 1e-4, f"baselines {net}: descriptors not unit")
+            require(cc["keypoints"] > 0 and cc["agree"] >= 0.98,
+                    f"baselines {net}: {cc['agree']:.4f} of keypoints agree with the CPU")
+        require(cc["desc_max_abs_err"] <= 1e-4,
+                f"baselines {net}: descriptor err {cc['desc_max_abs_err']} > 1e-4 vs the CPU")
+    # Only SFD2 reaches a kernel (K1) among the networks.
+    for net in BASELINE_NETS:
+        launched = sorted(out["nets"][net]["launches"])
+        require(launched == (["fused_stem"] if net == "sfd2" else []),
+                f"baselines {net}: kernels launched {launched}")
+    for key, rec in out["match"].items():
+        launched = rec["launches"]
+        require(set(launched) == {rec["kernel"]} and all(
+            s[1] == s[2] == out["max_keypoints"] and s[3] == rec["desc_dim"]
+            for s in launched[rec["kernel"]]),
+            f"baselines {key}: launched {launched}, expected only {rec['kernel']} at "
+            f"C={rec['desc_dim']}")
+        require(rec["pairs"] == 28, f"baselines {key}: matched {rec['pairs']} pairs")
+    sp = out["match"]["superpoint_NNM"]
+    require(sp["shift_candidates"] >= 100 and sp["shift_share"] >= 0.95,
+            f"baselines: SuperPoint NNM recovered {sp['shift_share']:.4f} of the planted shift "
+            f"({sp['shift_candidates']} candidates)")
+
+
+def run_retrieval(device, h: int = 768, w: int = 1024, n_db: int = 16, n_query: int = 8,
+                  small=(192, 256), profile: bool = False) -> dict:
+    """DIR retrieval on `device`: ``make_dir`` (ResNet-101, depths
+    (3, 4, 23, 3), 2048-D, float32, seeded weights) on n_db textured DB
+    images and n_query queries that are noisy copies (σ = 0.01) of DB
+    images 0.., then ``pairs_from_retrieval`` (5 per query) and
+    ``pca_whiten`` with a PCA fitted on the DB descriptors. The network is
+    first held against itself on the CPU on one small crop; `profile`
+    traces one image after the timed runs."""
+    dev = torch.device(device)
+    db = textured_images(n_db, h, SEED + 30, width=w)
+    rng = np.random.default_rng(SEED + 31)
+    queries = [np.clip(db[i] + rng.normal(0.0, 0.01, db[i].shape), 0, 1).astype(np.float32)
+               for i in range(n_query)]
+    crop = np.ascontiguousarray(db[0][: small[0], : small[1]])
+    g_dev = dynamic_load("dir", device=dev, seed=SEED)(crop)
+    g_cpu = dynamic_load("dir", device="cpu", seed=SEED)(crop)
+    reset_peak(dev)
+    extract = dynamic_load("dir", device=dev, seed=SEED)
+    reset_launches()
+    descs, times = timed_per_image(extract, db + queries)
+    counts = read_launches()
+    traced = device_profile(lambda: extract(db[0])) if profile else None
+    d_db, d_q = np.stack(descs[:n_db]), np.stack(descs[n_db:])
+    db_names = [f"db/{i}.png" for i in range(n_db)]
+    q_names = [f"query/{i}.png" for i in range(n_query)]
+    pairs = pairs_from_retrieval(q_names, d_q, db_names, d_db, num_matched=5)
+    first = {}
+    for q, d in pairs:
+        first.setdefault(q, d)
+    sim = d_q @ d_db.T
+    src = sim[np.arange(n_query), np.arange(n_query)]
+    others = np.where(np.eye(n_query, n_db, dtype=bool), -np.inf, sim).max(axis=1)
+    # dirtorch's PCA power-whitening, the basis fitted on the DB (rank
+    # n_db − 1 once centred).
+    mean = d_db.mean(axis=0)
+    _, sv, vt = np.linalg.svd(d_db - mean, full_matrices=False)
+    k = n_db - 1
+    white = pca_whiten(d_q, mean, vt[:k], sv[:k] ** 2 / (n_db - 1))
+    return dict(
+        db_images=[n_db, h, w, 3], queries=n_query, noise_sigma=0.01, depths=[3, 4, 23, 3],
+        dim=int(d_db.shape[1]), ms_per_img=float(np.median(times)), ms_per_img_runs=times,
+        peak_mem_mb=peak_mb(dev), finite=bool(np.isfinite(d_db).all() and np.isfinite(d_q).all()),
+        max_unit_norm_err=float(np.abs(np.linalg.norm(np.concatenate([d_db, d_q]), axis=1)
+                                       - 1).max()),
+        pairs=len(pairs), first_is_source=[first.get(q) == db_names[i]
+                                           for i, q in enumerate(q_names)],
+        source_sim=src.tolist(), best_other_sim=others.tolist(),
+        pca_dims=k, pca_max_unit_norm_err=float(np.abs(np.linalg.norm(white, axis=1) - 1).max()),
+        pca_finite=bool(np.isfinite(white).all()), launches=launches_by_shape(counts),
+        cpu_check=dict(desc_max_abs_err=float(np.abs(g_dev - g_cpu).max())), profile=traced)
+
+
+def phase_retrieval(results):
+    out = run_retrieval("cuda", profile=True)
+    traced = out.pop("profile")
+    emit("retrieval", **out)
+    emit("retrieval_profile", **traced)
+    require(out["finite"] and out["dim"] == 2048 and out["max_unit_norm_err"] <= 1e-4,
+            "retrieval: descriptors must be finite, 2048-D and unit")
+    require(out["pairs"] == 5 * out["queries"], f"retrieval: {out['pairs']} pairs")
+    require(all(out["first_is_source"]),
+            f"retrieval: a query's first pair is not its source: {out['first_is_source']}")
+    require(out["pca_finite"] and out["pca_max_unit_norm_err"] <= 1e-6,
+            "retrieval: PCA-whitened rows must be finite and unit")
+    require(out["cpu_check"]["desc_max_abs_err"] <= 1e-4,
+            f"retrieval: descriptor err {out['cpu_check']['desc_max_abs_err']} > 1e-4 vs the CPU")
+    require(not out["launches"], f"retrieval: kernels launched {out['launches']}")
 
 
 def gather_case(n: int, m: int, c: int, sorted_idx: bool = False) -> dict:
@@ -1938,6 +2249,8 @@ def main():
     phase_map_build(results, store, scene)
     phase_reconstruct(results, store, scene)
     phase_match_large(results)
+    phase_baselines(results)
+    phase_retrieval(results)
 
     shapes = {name: sum((run[name] for run in results["main_path"]), collections.Counter())
               for name in KERNELS}

@@ -87,13 +87,22 @@ def _strip_prefix(state: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     return out
 
 
+def float_state_dict(state: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A reference state_dict whose names are already the port's: prefixes
+    stripped, float32 tensors (the BN counters int64)."""
+    return OrderedDict(
+        (k, v.to(torch.long if k.endswith("num_batches_tracked") else torch.float32).contiguous())
+        for k, v in _strip_prefix(state).items())
+
+
 def load_torch_state_dict(path) -> Dict[str, torch.Tensor]:
-    """Load a reference checkpoint (.pth, ``ckpt['model']`` or a bare
-    state_dict) on the CPU, with the ``module.``/``model.`` prefixes
+    """Load a reference checkpoint (.pth, ``ckpt['model']``,
+    ``ckpt['state_dict']`` or a bare state_dict) on the CPU, with the ``module.``/``model.`` prefixes
     stripped. Tensors only (``weights_only``)."""
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
-    if isinstance(ckpt, dict) and "model" in ckpt:
-        ckpt = ckpt["model"]
+    for key in ("model", "state_dict"):  # SFD2 / D2-Net; r2d2
+        if isinstance(ckpt, dict) and isinstance(ckpt.get(key), dict):
+            ckpt = ckpt[key]
     return _strip_prefix(ckpt)
 
 

@@ -324,9 +324,13 @@ def test_extract_features_cli_refuses_what_is_not_ported(tmp_path, capsys):
     (tmp_path / "imgs").mkdir()
     base = ["--image_dir", str(tmp_path / "imgs"), "--export_fn", str(tmp_path / "f.h5"),
             "--device", "cpu"]
+    for extractor in ("nope", "dir"):  # dir is a global extractor: cli/extract_global.py
+        with pytest.raises(SystemExit):
+            t_cli.main(base + ["--extractor", extractor])
+        assert "invalid choice" in capsys.readouterr().err
     with pytest.raises(SystemExit):
-        t_cli.main(base + ["--extractor", "superpoint"])
-    assert "ROADMAP.md item 9" in capsys.readouterr().err
+        t_cli.main(base + ["--extractor", "superpoint", "--mask_dir", str(tmp_path)])
+    assert "only supported by the sfd2 extractor" in capsys.readouterr().err
     with pytest.raises(SystemExit):
         t_cli.main(base + ["--weights", str(tmp_path / "w.ckpt")])
     assert ".ckpt" in capsys.readouterr().err

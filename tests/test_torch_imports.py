@@ -47,7 +47,9 @@ def test_port_lists_the_slice_modules():
                  "localization.graphs", "serving.server", "cli.serve", "native",
                  "geometry.pose", "utils.profiling", "localization.localizer",
                  "cli.localizer", "localization.inloc", "cli.extract_features", "io.nvm",
-                 "cli.colmap_from_nvm"):
+                 "cli.colmap_from_nvm", "models.superpoint", "models.r2d2",
+                 "models.baselines", "models.retrieval", "models.convert_baselines",
+                 "pipeline.extractors", "cli.extract_global"):
         assert f"sfd2_torch.{name}" in mods, name
 
 
