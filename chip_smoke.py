@@ -59,7 +59,15 @@ CUDA graph, ``graph_ms``), then drives the main paths:
   (K4, C=256), and the planted shift recovered (SuperPoint NNM ≥ 95 %);
 - DIR retrieval: ``make_dir`` (ResNet-101 GeM, 2048-D, float32) on 16
   DB images and 8 noisy copies as queries, ``pairs_from_retrieval`` (each
-  query's first pair its source) and ``pca_whiten``.
+  query's first pair its source) and ``pca_whiten``;
+- training: ``Trainer`` with the shipped loss configuration on seeded
+  full-width ResSegNetV2 and SuperPoint, the online ConvNeXt-B UPerNet
+  teacher, 512² crops of 20 textured 1024×768 images, batch 4: 2 epochs ×
+  5 steps timed stage by stage, a resume and a third epoch, one injected
+  NaN batch (``train``); the convergence recipe of
+  ``tests/test_convergence.py`` and one step against the CPU
+  (``train_converge``); the trained ``last.ckpt`` through ``Extractor``
+  (K1 at [4,1024,1024,3]) against the unfused stem (``train_extract``).
 Every kernel's launch count and launch-shape record is set to 0 just
 before each path and read just after. A shape a main path launched that
 the kernel phases did not compare is compared afterwards, so every launch
@@ -122,7 +130,8 @@ from sfd2_torch.ops.matching import (mutual_nn_match, mutual_nn_ratio_match, nn_
                                     tiled_route)
 from sfd2_torch.ops.stem import fused_stem_apply, repack_stem_params, unpack_stem_params
 from sfd2_torch.pipeline.extract import EXTRACTION_CONFS, ExtractionConfig, Extractor
-from sfd2_torch.pipeline.extractors import BaselineConfig, build_model, caps_describe, dynamic_load
+from sfd2_torch.pipeline.extractors import (BaselineConfig, build_model, caps_describe, dynamic_load,
+                                            seeded_init_)
 from sfd2_torch.pipeline.match import MatchConfig, match_pairs
 from sfd2_torch.sfm import pipeline as sfm_pipeline
 from sfd2_torch.sfm import reconstruction as sfm_reconstruction
@@ -135,6 +144,16 @@ from sfd2_torch.serving.server import LocalizationService, make_server
 from sfd2_torch.sfm.tracks import track_edges, union_find_roots_plain
 from sfd2_torch.utils.profiling import trace
 from sfd2_torch.utils.synth import build_corridor_scene
+from sfd2_torch.models.superpoint import SuperPoint
+from sfd2_torch.models.upernet import seeded_segmentor
+from sfd2_torch.pipeline import extract as pipeline_extract
+from sfd2_torch.training.data import ArrayDataset, PairLoader, SyntheticPairBuilder
+from sfd2_torch.training.losses import SegLossConfig
+from sfd2_torch.training.sampler import NghSampler2DS
+from sfd2_torch.training.seg_teacher import SegTeacher, SegTeacherLoader
+from sfd2_torch.training.train_step import (TrainBatch, TrainConfig, TrainState, guarded_state,
+                                            make_optimizer, make_train_step, set_lr)
+from sfd2_torch.training.trainer import Trainer, TrainerConfig, batch_to_device, load_model_state
 
 # H100 SXM peaks (NVIDIA data sheet, 700 W): f32 outside the tensor cores,
 # dense TF32 and bf16 on the tensor cores, and HBM bandwidth. The bound of
@@ -1159,6 +1178,368 @@ def phase_retrieval(results):
     require(out["cpu_check"]["desc_max_abs_err"] <= 1e-4,
             f"retrieval: descriptor err {out['cpu_check']['desc_max_abs_err']} > 1e-4 vs the CPU")
     require(not out["launches"], f"retrieval: kernels launched {out['launches']}")
+
+
+# ---------------------------------------------------------------------------
+# Training: the shipped configuration, the convergence recipe, and the
+# trained checkpoint through K1.
+# ---------------------------------------------------------------------------
+
+TRAIN = dict(n_images=20, hw=(768, 1024), crop=512, batch_size=4, iters=5, workers=4)
+# 20 images: PairLoader's epoch is one permutation of the dataset, so 5
+# batches of 4 need 20 (16 give 4 per epoch).
+
+
+class SyncTimer:
+    """Wall ms per named stage (``timer(name)`` → context manager), the
+    device synchronised at both ends, so a stage holds its device work."""
+
+    def __init__(self, device):
+        self.sync = device_sync(device)
+        self.ms = collections.defaultdict(list)
+
+    @contextlib.contextmanager
+    def __call__(self, name):
+        self.sync()
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.sync()
+            self.ms[name].append((time.perf_counter() - t0) * 1e3)
+
+    def wrap(self, fn, name):
+        def timed(*args, **kwargs):
+            with self(name):
+                return fn(*args, **kwargs)
+        return timed
+
+
+def train_loader(device, teacher_model, timer, n_images, hw, crop, batch_size, iters, workers):
+    """PairLoader over seeded textures + the online teacher (its labelling
+    timed as ``teacher``)."""
+    images = textured_images(n_images, hw[0], SEED + 20, width=hw[1])
+    loader = PairLoader(ArrayDataset(images), SyntheticPairBuilder(crop=crop),
+                        batch_size=batch_size, seed=SEED, workers=workers, iters_per_epoch=iters)
+    teacher = SegTeacher(teacher_model, device=device)
+    if timer is not None:
+        teacher.label_tensor = timer.wrap(teacher.label_tensor, "teacher")
+    return SegTeacherLoader(loader, teacher)
+
+
+def run_train(device, root, sampler=None, teacher_model=None, profile=False, **shape) -> dict:
+    """The `train` phase on `device`: 2 epochs (timed stage by stage, every
+    step logged), a resume and a third epoch (untimed), one injected NaN
+    batch, and (`profile`) one traced step. `shape` overrides TRAIN."""
+    shape = {**TRAIN, **shape}
+    sampler = sampler or NghSampler2DS()
+    teacher_model = teacher_model or seeded_segmentor(seed=SEED)
+    timer = SyncTimer(device)
+    loader = train_loader(device, teacher_model, timer, **shape)
+    tcfg = TrainConfig(sampler=sampler)
+
+    def trainer_cfg(epochs, log_every):
+        return TrainerConfig(epochs=epochs, iters_per_epoch=shape["iters"],
+                             batch_size=shape["batch_size"], log_every=log_every,
+                             save_dir=str(root), run_name="train", train=tcfg)
+
+    trainer = Trainer(loader, trainer_cfg(2, 1), seed=SEED, device=device, timer=timer)
+    t0 = time.perf_counter()
+    trainer.train()
+    device_sync(device)()
+    two_epochs_s = time.perf_counter() - t0
+    n = 2 * shape["iters"]
+    ms = timer.ms
+    require(all(len(ms[k]) == n for k in ("loader", "upload", "step", "teacher", "forward",
+                                          "backward", "optimizer")),
+            f"train: stage counts {({k: len(v) for k, v in ms.items()})}")
+    per_step = [ms["loader"][i] + ms["upload"][i] + ms["step"][i] for i in range(n)]
+    split = {k: float(np.median(ms[k][1:])) for k in ("teacher", "upload", "forward",
+                                                       "backward", "optimizer")}
+    split["pairs"] = float(np.median([ms["loader"][i] - ms["teacher"][i] for i in range(1, n)]))
+    run = trainer.run_dir
+    logged = [json.loads(l) for l in (run / "metrics.jsonl").read_text().splitlines()]
+
+    # Resume from last.ckpt and train a third epoch, untimed.
+    resumed = Trainer(train_loader(device, teacher_model, None, **shape), trainer_cfg(3, 1000),
+                      seed=SEED + 1, device=device)
+    require(resumed.resume() and resumed.start_epoch == 2, "train: resume from last.ckpt failed")
+    t0 = time.perf_counter()
+    resumed.train()
+    device_sync(device)()
+    third_epoch_s = time.perf_counter() - t0
+    state = resumed.state
+    files = sorted(p.name for p in run.iterdir())
+
+    # One NaN batch: nothing of the state may move.
+    batch_np = next(iter(train_loader(device, teacher_model, None, **shape).epoch(99)))
+    good = batch_to_device(batch_np, resumed.device)
+    bad = good._replace(image1=good.image1.clone())
+    bad.image1[0, 0, 0, 0] = float("nan")
+    step_fn = resumed._step_for(True)
+    before = [t.clone() for t in guarded_state(state)]
+    step_before = state.step
+    _, nan_metrics = step_fn(state, bad, resumed.step_generator(99, 0))
+    nan_unchanged = all(torch.equal(a, b) for a, b in zip(guarded_state(state), before))
+    out = dict(
+        images=[shape["n_images"], *shape["hw"], 3], crop=shape["crop"],
+        batch_size=shape["batch_size"], steps=state.step - 1,
+        first_step_ms=per_step[0], median_ms_per_step=float(np.median(per_step[1:])),
+        ms_per_step=per_step, steps_per_s=1e3 / float(np.median(per_step[1:])),
+        split_median_ms=split, two_epochs_s=two_epochs_s,
+        third_epoch_s_untimed=third_epoch_s,
+        ms_per_step_untimed=third_epoch_s * 1e3 / shape["iters"],
+        logged=[{k: round(v, 6) if isinstance(v, float) else v for k, v in r.items()}
+                for r in logged],
+        files=files, tb_files=len(list((run / "tb").glob("events.out.tfevents.*"))),
+        resumed_at_epoch=2, nan_loss=float(nan_metrics["loss"]),
+        nan_state_unchanged=nan_unchanged, nan_step_counted=state.step == step_before + 1,
+        run_dir=str(run))
+    require(len(logged) == n and all(np.isfinite(v) for r in logged for v in r.values()),
+            "train: a logged loss is not finite")
+    require(all({"det_loss", "unsup_desc_loss", "seg_det_loss", "seg_desc_loss"} <= set(r)
+                for r in logged), "train: a loss term is missing")
+    require(state.step - 1 == 3 * shape["iters"], f"train: {state.step - 1} steps after resume")
+    require({"last.ckpt", "best.ckpt", "log.txt", "metrics.jsonl", "tb"} <= set(files),
+            f"train: run directory holds {files}")
+    require(out["tb_files"] >= 2, "train: no TensorBoard events of both runs")
+    require("resumed from" in (run / "log.txt").read_text(), "train: log.txt lacks the resume")
+    require(not np.isfinite(out["nan_loss"]) and nan_unchanged,
+            "train: a NaN batch moved the state")
+    if profile:
+        out["profile"] = device_profile(
+            lambda: step_fn(state, good, resumed.step_generator(99, 1)))
+    return out
+
+
+def phase_train(results, root) -> str:
+    reset_launches()
+    out = run_train("cuda", root, profile=True)
+    results["main_path"].append(read_launches())
+    traced = out.pop("profile")
+    emit("train", **out, launches={k: sum(v.values()) for k, v in read_launches().items()})
+    emit("train_profile", **traced)
+    return out["run_dir"]
+
+
+CONVERGE_SAMPLER = dict(ngh=3, subq=-4, pos_d=1, neg_d=2, border=3, subd_neg=-4)
+CONVERGE_SEED = 7  # the student's seeded init (SuperPoint's: + 1), pinned on a CPU run
+
+
+def shifted_pair_batch(rng, r=48, shift=4):
+    """tests/test_convergence.py's pair: image 2 is image 1 moved by
+    `shift` px, aflow the truth (NaN outside the overlap), two label halves."""
+    base = rng.normal(size=(r + shift, r + shift, 3)).astype(np.float32)
+    for _ in range(2):
+        base = (base + np.roll(base, 1, 0) + np.roll(base, 1, 1)
+                + np.roll(base, -1, 0) + np.roll(base, -1, 1)) / 5
+    img1 = base[:r, :r]
+    img2 = base[shift: shift + r, shift: shift + r]
+    ys, xs = np.mgrid[0:r, 0:r]
+    aflow = np.stack([xs - shift, ys - shift], -1).astype(np.float32)[None]
+    aflow[(aflow < 0).any(-1)] = np.nan
+    seg = np.zeros((1, r, r), np.int32)
+    seg[:, : r // 2] = 2
+    seg[:, r // 2:] = 13
+    return dict(image1=img1[None], image2=img2[None], gray1=img1.mean(-1, keepdims=True)[None],
+                gray2=img2.mean(-1, keepdims=True)[None], aflow=aflow, seg1=seg), img1
+
+
+def converge_models(seed=CONVERGE_SEED):
+    model = seeded_init_(ResSegNetV2(require_stability=True, require_feature=True), seed)
+    return model, seeded_init_(SuperPoint(), seed + 1)
+
+
+def converge_cfg():
+    return TrainConfig(lr=3e-4, loss=SegLossConfig(topk_per_half=32),
+                       sampler=NghSampler2DS(**CONVERGE_SAMPLER))
+
+
+def np_batch_on(batch_np, device, dtype=torch.float32):
+    return TrainBatch(**{k: torch.from_numpy(v).to(device, dtype if v.dtype == np.float32
+                                                    else torch.int64)
+                         for k, v in batch_np.items()})
+
+
+def run_train_converge(device, steps: int = 200, seed: int = CONVERGE_SEED) -> dict:
+    """tests/test_convergence.py's recipe through the port: `steps` Adam
+    steps (lr 3e-4) on one 48² shifted pair from the seeded init; the bars
+    are the JAX test's."""
+    batch_np, img1 = shifted_pair_batch(np.random.default_rng(3))
+    model, sp = converge_models(seed)
+    model, sp = model.to(device), sp.to(device)
+    cfg = converge_cfg()
+    state = TrainState(model=model, optimizer=make_optimizer(cfg, model))
+    step = make_train_step(model, sp, cfg)
+    batch = np_batch_on(batch_np, device)
+    with torch.no_grad():
+        gt = sp(batch.gray1)["scores"][0].cpu().numpy()
+
+    def det_corr():
+        model.eval()
+        with torch.no_grad():
+            score = model(torch.from_numpy(img1[None]).to(device)).score[0].cpu().numpy()
+        return float(np.corrcoef(score.ravel(), gt.ravel())[0, 1])
+
+    corr_init = det_corr()
+    losses = []
+    t0 = time.perf_counter()
+    sampler = cfg.sampler
+    for i in range(steps):
+        # Positions from a CPU generator: the card and the CPU rehearsal
+        # draw the same ones.
+        pos = sampler.sample_positions(torch.Generator().manual_seed(i), 1, 12, 12)
+        state, metrics = step(state, batch, None, pos)
+        losses.append(metrics["loss"])
+    losses = [float(v) for v in losses]
+    seconds = time.perf_counter() - t0
+    first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    corr_after = det_corr()
+    return dict(steps=state.step, seconds=seconds, ms_per_step=seconds * 1e3 / steps,
+                first10=first, last10=last, ratio=last / first, corr_init=corr_init,
+                corr_after=corr_after, corr_gain=corr_after - corr_init,
+                finite=bool(np.all(np.isfinite(losses))))
+
+
+def step_grads(device, positions, dtype=torch.float32):
+    """One train step of the converge setting from the seeded init on
+    `device` with the given sampler positions: (losses, gradients)."""
+    batch_np, _ = shifted_pair_batch(np.random.default_rng(3))
+    model, sp = converge_models()
+    model, sp = model.to(device, dtype), sp.to(device, dtype)
+    cfg = converge_cfg()
+    state = TrainState(model=model, optimizer=make_optimizer(cfg, model))
+    _, metrics = make_train_step(model, sp, cfg)(state, np_batch_on(batch_np, device, dtype),
+                                                 None, positions)
+    return ({k: float(v) for k, v in metrics.items()},
+            {n: p.grad.detach().double().cpu().numpy() for n, p in model.named_parameters()})
+
+
+def grad_gap(a, b, ref) -> dict:
+    """Per tensor max |a − b| over max |ref|, `ref` the float64 gradient;
+    tensors without one (a bias before a train-mode BatchNorm) are left
+    out."""
+    gaps = {n: float(np.abs(a[n] - b[n]).max() / np.abs(ref[n]).max())
+            for n in ref if np.abs(ref[n]).max() > 1e-6}
+    worst = max(gaps, key=gaps.get)
+    return dict(max=gaps[worst], worst=worst, median=float(np.median(list(gaps.values()))),
+                under_1e3=sum(v <= 1e-3 for v in gaps.values()), tensors=len(gaps))
+
+
+def check_step_card_cpu(device="cuda") -> dict:
+    """The same train step (weights, batch, sampler positions) on `device`
+    twice, on the CPU in float32 and in float64."""
+    positions = NghSampler2DS(**CONVERGE_SAMPLER).sample_positions(
+        torch.Generator().manual_seed(SEED), 1, 12, 12)
+    m_dev, g_dev = step_grads(device, positions)
+    m_dev2, g_dev2 = step_grads(device, positions)
+    m_cpu, g_cpu = step_grads("cpu", positions)
+    m_64, g_64 = step_grads("cpu", positions, torch.float64)
+    loss_rel = max(abs(m_dev[k] - m_cpu[k]) / max(abs(m_cpu[k]), 1e-12) for k in m_cpu)
+    return dict(loss_max_rel_err=loss_rel, grad_card_vs_cpu=grad_gap(g_dev, g_cpu, g_64),
+                grad_card_rerun=grad_gap(g_dev, g_dev2, g_64),
+                grad_cpu32_vs_cpu64=grad_gap(g_cpu, g_64, g_64),
+                grad_card_vs_cpu64=grad_gap(g_dev, g_64, g_64),
+                losses_card=m_dev, losses_cpu=m_cpu)
+
+
+def check_adam_schedule(device="cuda") -> dict:
+    """Adam with a decaying rate, capturable on the card (its count and the
+    rate on the device) against the CPU's: three steps on fixed gradients."""
+    cfg = TrainConfig(lr=1e-2, decay_rate=0.5, decay_iter=1)
+    out = []
+    for dev in (device, "cpu"):
+        gen = torch.Generator().manual_seed(SEED)
+        module = torch.nn.Module()
+        for name, shape in (("weight", (4, 8)), ("bias", (4,))):
+            module.register_parameter(name, torch.nn.Parameter(
+                torch.randn(shape, generator=gen).to(dev)))
+        grads = [torch.randn(p.shape, generator=gen).to(dev) for p in module.parameters()]
+        opt = make_optimizer(cfg, module)
+        for _ in range(3):
+            for p, g in zip(module.parameters(), grads):
+                p.grad = g.clone()
+            set_lr(cfg, opt)
+            opt.step()
+        out.append([p.detach().cpu() for p in module.parameters()])
+    return dict(adam_max_abs_err=max(float((a - b).abs().max()) for a, b in zip(*out)))
+
+
+def phase_train_converge(results):
+    reset_launches()
+    out = run_train_converge("cuda")
+    results["main_path"].append(read_launches())
+    out.update(check_step_card_cpu(), **check_adam_schedule())
+    emit("train_converge", **out)
+    require(out["finite"] and out["steps"] == 200, "train_converge: non-finite losses")
+    require(out["ratio"] < 0.92, f"train_converge: loss ratio {out['ratio']} ≥ 0.92")
+    require(out["corr_gain"] > 0.06, f"train_converge: correlation gain {out['corr_gain']}")
+    require(out["loss_max_rel_err"] <= 1e-4,
+            f"train_converge: card and CPU losses differ by {out['loss_max_rel_err']}")
+    require(out["grad_card_vs_cpu"]["max"] <= 1e-3,
+            f"train_converge: card and CPU gradients differ by {out['grad_card_vs_cpu']}")
+    require(out["adam_max_abs_err"] <= 1e-6, "train_converge: capturable Adam differs")
+
+
+def run_train_extract(device, run_dir) -> tuple:
+    """K1 on the trained weights: last.ckpt through extract_features'
+    loader, Extractor at sfd2-n4096-r1024 in float32 on 4 images of 1024²,
+    against the same extraction with the model's own unfused stem (eval
+    mode, the running statistics the trainer wrote). (result, launches)."""
+    state = load_model_state(Path(run_dir) / "last.ckpt")
+    conf = dataclasses.replace(EXTRACTION_CONFS["sfd2-n4096-r1024"], bf16=False)
+    images = textured_images(4, 1024, SEED + 30)
+    ex = Extractor(state, conf, device=device)
+    ex.extract_batch(images)  # warm-up
+    reset_launches()
+    t0 = time.perf_counter()
+    feats = ex.extract_batch(images)
+    ms = (time.perf_counter() - t0) * 1e3 / len(images)
+    counts = read_launches()
+    model = ex.model
+
+    def unfused_stem(x, stem, dtype):
+        out = model.bn1b(model.conv1b(model.conv1a(x.permute(0, 3, 1, 2))))
+        return out.permute(0, 2, 3, 1).to(dtype)
+
+    with patched(pipeline_extract, "fused_stem_cuda", unfused_stem):
+        ref = ex.extract_batch(images)
+    agree = []
+    for f, r in zip(feats, ref):
+        a = keypoint_agreement(f, r)
+        kf = {tuple(p): i for i, p in enumerate(np.rint(f.keypoints * 8).astype(int).tolist())}
+        kr = {tuple(p): i for i, p in enumerate(np.rint(r.keypoints * 8).astype(int).tolist())}
+        a["score_max_abs_err"] = max((abs(float(f.scores[kf[p]] - r.scores[kr[p]]))
+                                      for p in set(kf) & set(kr)), default=0.0)
+        agree.append(a)
+    return dict(images=[4, 1024, 1024, 3], ms_per_img=ms,
+                fused_stem_launches=sum(counts["fused_stem"].values()),
+                stem_shapes=[[*k, v] for k, v in counts["fused_stem"].items()],
+                num_batches_tracked=int(state["conv1a.1.num_batches_tracked"]),
+                agreement=agree), counts
+
+
+def phase_train_extract(results, run_dir):
+    out, counts = run_train_extract("cuda", run_dir)
+    results["main_path"].append(counts)
+    emit("train_extract", **out)
+    require(out["fused_stem_launches"] > 0, "train_extract: K1 was not launched")
+    require(out["num_batches_tracked"] > 0, "train_extract: untrained statistics")
+    for a in out["agreement"]:
+        require(a["keypoints"] > 0 and a["agree"] >= 0.98,
+                f"train_extract: {a['agree']:.4f} of keypoints agree with the unfused stem")
+        require(a["desc_max_abs_err"] <= 1e-4 and a["score_max_abs_err"] <= 1e-4,
+                f"train_extract: descriptors/scores differ by {a}")
+
+
+@contextlib.contextmanager
+def patched(module, name, value):
+    old = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, old)
 
 
 def gather_case(n: int, m: int, c: int, sorted_idx: bool = False) -> dict:
@@ -2251,6 +2632,10 @@ def main():
     phase_match_large(results)
     phase_baselines(results)
     phase_retrieval(results)
+    with tempfile.TemporaryDirectory() as train_root:
+        run_dir = phase_train(results, Path(train_root))
+        phase_train_converge(results)
+        phase_train_extract(results, run_dir)
 
     shapes = {name: sum((run[name] for run in results["main_path"]), collections.Counter())
               for name in KERNELS}

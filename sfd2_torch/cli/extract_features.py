@@ -6,10 +6,12 @@ conf registry, image-list input, HDF5 export, resume) plus ``--device``
 the other registry names (``pipeline/extractors.py``: superpoint, r2d2,
 d2net, caps, sgd2, sift) run the hloc-style baseline loop, one image at a
 time at the conf's ``resize_max``, ``max_keypoints`` and
-``conf_threshold``. ``--weights`` takes the extractor's reference ``.pth``;
-without it the network gets seeded random weights from a
-``torch.Generator``. The Flax ``.ckpt`` weights of the JAX CLI are not
-available here. ``sift`` and ``caps`` detect with OpenCV on the host.
+``conf_threshold``. ``--weights`` takes the extractor's reference ``.pth``
+or, for sfd2, a checkpoint of the port's trainer (``last.ckpt`` /
+``best.ckpt``: its model entry, the counterpart of the JAX CLI's Flax
+``.ckpt`` branch); without it the network gets seeded random weights from
+a ``torch.Generator``. The JAX CLI's Flax ``.ckpt`` files are refused:
+they need the JAX package. ``sift`` and ``caps`` detect with OpenCV on the host.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from sfd2_torch.models.sfd2 import ResSegNetV2
 from sfd2_torch.pipeline.extract import EXTRACTION_CONFS, Extractor, load_image
 from sfd2_torch.pipeline.extractors import (EXTRACTOR_REGISTRY, BaselineConfig, dynamic_load,
                                             reference_state_dict)
+from sfd2_torch.training.trainer import load_model_state
 from sfd2_torch.utils.device import resolve_device
 
 
@@ -38,6 +41,14 @@ def list_images(image_dir: Path, image_list: Path | None):
     exts = (".jpg", ".jpeg", ".png")
     return sorted(str(p.relative_to(image_dir)) for p in image_dir.rglob("*")
                   if p.suffix.lower() in exts)
+
+
+def is_torch_archive(path: Path) -> bool:
+    """``torch.save`` writes a zip archive; Flax's msgpack is not one."""
+    if not path.is_file():
+        return False
+    with open(path, "rb") as f:
+        return f.read(4) == b"PK\x03\x04"
 
 
 def seeded_state_dict(seed: int):
@@ -88,7 +99,8 @@ def main(argv=None):
     parser.add_argument("--export_fn", type=Path, required=True)
     parser.add_argument("--conf", default="sfd2-n4096-r1600", choices=EXTRACTION_CONFS)
     parser.add_argument("--weights", type=Path, default=None,
-                        help="reference torch .pth checkpoint (seeded random weights if absent)")
+                        help="reference torch .pth checkpoint, or for sfd2 a checkpoint of "
+                             "sfd2_torch's trainer (seeded random weights if absent)")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--as_half", action="store_true",
                         help="store descriptors as float16 (half the disk)")
@@ -111,9 +123,11 @@ def main(argv=None):
                      "(nets/extractor.py:240-326)")
     if args.weights is not None and args.extractor == "sift":
         parser.error("--weights: the sift extractor has no network")
-    if args.weights is not None and args.weights.suffix != ".pth":
-        parser.error(f"--weights {args.weights}: only reference .pth checkpoints load here "
-                     "(Flax .ckpt files need the JAX package)")
+    trained = args.weights is not None and args.weights.suffix != ".pth"
+    if trained and (args.extractor != "sfd2" or not is_torch_archive(args.weights)):
+        parser.error(f"--weights {args.weights}: only reference .pth checkpoints and, for "
+                     "sfd2, checkpoints of sfd2_torch's trainer load here (Flax .ckpt files "
+                     "need the JAX package)")
     cfg = EXTRACTION_CONFS[args.conf]
     if args.as_half:
         cfg = dataclasses.replace(cfg, as_half=True)
@@ -124,7 +138,10 @@ def main(argv=None):
     args.export_fn.parent.mkdir(parents=True, exist_ok=True)
     if args.extractor != "sfd2":
         return extract_baseline(args, cfg, device, names)
-    state = convert_checkpoint(args.weights) if args.weights else seeded_state_dict(args.seed)
+    if trained:
+        state = load_model_state(args.weights)
+    else:
+        state = convert_checkpoint(args.weights) if args.weights else seeded_state_dict(args.seed)
     extractor = Extractor(state, cfg, device=device)
     with FeatureStore(args.export_fn, "a") as store:
         n = extractor.extract_to_store(args.image_dir, names, store, mask_dir=args.mask_dir,

@@ -14,7 +14,9 @@ weights are derived from this state_dict by
 ``weights/20220810_ressegnetv2_wapv2_ce_sd2mfsf_uspg.pth``, which
 ``extract_localization.py:208`` loads as ``ckpt['model']``) straight into
 that state_dict, through ``convert_ressegnet``'s own copy of the key
-table.
+table. ``adam_state_from_flax`` carries optax's Adam moments and count
+into ``torch.optim.Adam``'s per-parameter state, so the JAX package and
+the port take the same training step from the same state.
 """
 
 from __future__ import annotations
@@ -151,3 +153,20 @@ def convert_ressegnet(state: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
 def convert_checkpoint(path) -> Dict[str, torch.Tensor]:
     """A reference ``.pth`` → the port's ResSegNetV2 state_dict."""
     return convert_ressegnet(load_torch_state_dict(path))
+
+
+def adam_state_from_flax(optimizer: torch.optim.Optimizer, model: torch.nn.Module,
+                         variables: Mapping[str, Any], mu, nu, count) -> None:
+    """Load optax's ``scale_by_adam`` state (`mu`, `nu`: trees shaped as
+    the Flax ResSegNet[V2] params; `count`: its update count) into
+    `optimizer`'s per-parameter state (``exp_avg``, ``exp_avg_sq``,
+    ``step``), in place. `variables` gives the BatchNorm statistics the
+    key table needs; `model`'s parameter names pick the entries."""
+    stats = variables["batch_stats"]
+    m_sd = state_dict_from_flax({"params": mu, "batch_stats": stats})
+    v_sd = state_dict_from_flax({"params": nu, "batch_stats": stats})
+    for name, p in model.named_parameters():
+        st = optimizer.state[p]
+        st["exp_avg"].copy_(m_sd[name])
+        st["exp_avg_sq"].copy_(v_sd[name])
+        st["step"].fill_(float(np.asarray(count)))

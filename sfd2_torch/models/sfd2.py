@@ -1,6 +1,6 @@
 """ResSegNet / ResSegNetV2 — the SFD2 detector/descriptor network (PyTorch).
 
-Port of ``sfd2_tpu/models/sfd2.py`` (inference outputs). Architecture:
+Port of ``sfd2_tpu/models/sfd2.py``. Architecture:
 
   encoder   conv1a→conv1b(s2)→bn1b | conv2a→conv2b(s2)→bn2b |
             conv3a→conv3b→bn3b     | 3× grouped ResBlock      → out4 @1/4 res
@@ -15,6 +15,12 @@ NHWC ``[B, H, W, 3]``, ``score``/``stability`` ``[B, H, W]``,
 ``descriptors`` NHWC ``[B, h, w, outdim]``. Parameters carry the
 reference checkpoint's names. When the parameters are bfloat16 the trunk
 runs in bfloat16 and the heads' outputs are taken in float32.
+
+``forward(x, training_outputs=True)`` is the ``det_train`` contract
+(``nets/sfd2.py:356-402``) the trainer calls in train mode (BatchNorm on
+batch statistics): it adds the normalised 65-channel ``semi`` map, the
+softmax of the upsampled stability logits and, with ``require_feature``,
+the encoder features ``(out2c, out3c)``; V2 folds ``score *= stability``.
 """
 
 from __future__ import annotations
@@ -32,6 +38,9 @@ class DetectionOutput(NamedTuple):
     score: torch.Tensor  # [B, H, W] full-res detection heatmap
     stability: Optional[torch.Tensor]  # [B, H, W] {0.1,0.5,1.0} (V2) / sigmoid (V1)
     descriptors: torch.Tensor  # [B, h/4, w/4, outdim], L2-normalised
+    semi: Optional[torch.Tensor] = None  # [B, h/8, w/8, 65] normalised (training)
+    stability_logits: Optional[torch.Tensor] = None  # [B, H, W, 3] softmax (training)
+    features: tuple = ()  # (out2c, out3c) NHWC (training, require_feature)
 
 
 def _pixel_shuffle_score(semi_norm: torch.Tensor) -> torch.Tensor:
@@ -47,10 +56,13 @@ class _ResSegBase(nn.Module):
     """Shared encoder + heads; V1/V2 differ only in the stability head."""
 
     sta_channels = 0
+    fold_stability_into_score = False  # V2's det_train multiplies the score
 
-    def __init__(self, outdim: int = 128, require_stability: bool = True):
+    def __init__(self, outdim: int = 128, require_stability: bool = True,
+                 require_feature: bool = False):
         super().__init__()
         self.require_stability = require_stability
+        self.require_feature = require_feature
         self.conv1a = ConvUnit(3, 64)
         self.conv1b = ConvUnit(64, 64, stride=2, use_bn=False, relu=False)
         self.bn1b = BNRelu(64)
@@ -68,15 +80,17 @@ class _ResSegBase(nn.Module):
         if require_stability:
             self.ConvSta = nn.Conv2d(256, self.sta_channels, 1)
 
-    def _sta_map(self, sta: torch.Tensor, size) -> torch.Tensor:
+    def _sta_map(self, sta: torch.Tensor, size, need_soft: bool = False):
+        """(stability value map [B,H,W], softmax of the upsampled logits
+        [B,H,W,C] or None); `need_soft` only for the training losses."""
         raise NotImplementedError
 
-    def forward(self, x: torch.Tensor) -> DetectionOutput:
+    def forward(self, x: torch.Tensor, training_outputs: bool = False) -> DetectionOutput:
         """`x`: [B, H, W, 3] ImageNet-normalised images (NHWC)."""
         dt = self.conv1a[0].weight.dtype
         x = x.permute(0, 3, 1, 2).to(dt)
         out1c = self.bn1b(self.conv1b(self.conv1a(x)))
-        return self._trunk(out1c, (x.shape[2], x.shape[3]))
+        return self._trunk(out1c, (x.shape[2], x.shape[3]), training_outputs)
 
     def forward_from_out1c(self, out1c: torch.Tensor) -> DetectionOutput:
         """Inference forward from the post-stem activation out1c
@@ -86,7 +100,8 @@ class _ResSegBase(nn.Module):
         x = out1c.permute(0, 3, 1, 2).to(dt)
         return self._trunk(x, (x.shape[2] * 2, x.shape[3] * 2))
 
-    def _trunk(self, out1c: torch.Tensor, full_size) -> DetectionOutput:
+    def _trunk(self, out1c: torch.Tensor, full_size,
+               training_outputs: bool = False) -> DetectionOutput:
         out2c = self.bn2b(self.conv2b(self.conv2a(out1c)))
         out3c = self.bn3b(self.conv3b(self.conv3a(out2c)))
         out4 = self.conv4(out3c)
@@ -98,26 +113,37 @@ class _ResSegBase(nn.Module):
         desc = self.convDb(self.convDa(out4)).float()
         desc = desc / torch.clamp(torch.linalg.norm(desc, dim=1, keepdim=True), min=1e-12)
 
-        stability = None
+        stability = sta_soft = None
         if self.require_stability:
-            stability = self._sta_map(self.ConvSta(out4).float(), full_size)
-        return DetectionOutput(score=score, stability=stability,
-                               descriptors=desc.permute(0, 2, 3, 1))
+            stability, sta_soft = self._sta_map(self.ConvSta(out4).float(), full_size,
+                                                training_outputs)
+            if training_outputs and self.fold_stability_into_score:
+                score = score * stability
+        feats = ()
+        if training_outputs and self.require_feature:
+            feats = (out2c.permute(0, 2, 3, 1), out3c.permute(0, 2, 3, 1))
+        return DetectionOutput(
+            score=score, stability=stability, descriptors=desc.permute(0, 2, 3, 1),
+            semi=semi_norm.permute(0, 2, 3, 1) if training_outputs else None,
+            stability_logits=sta_soft, features=feats)
 
 
 class ResSegNetV2(_ResSegBase):
     """V2: 3-class semantic-stability classifier head (``nets/sfd2.py:259``)."""
 
     sta_channels = 3
+    fold_stability_into_score = True
 
-    def _sta_map(self, sta, size):
+    def _sta_map(self, sta, size, need_soft=False):
         # Upsample the logits, then first-max class → {0.1, 0.5, 1.0}
         # (nets/sfd2.py:345-347), written as the JAX package's select chain.
         up = F.interpolate(sta, size=tuple(size), mode="bilinear", align_corners=False)
         s0, s1, s2 = up[:, 0], up[:, 1], up[:, 2]
         is0 = (s0 >= s1) & (s0 >= s2)
         is1 = (~is0) & (s1 >= s2)
-        return torch.where(is0, 0.1, torch.where(is1, 0.5, 1.0)).to(torch.float32)
+        values = torch.where(is0, 0.1, torch.where(is1, 0.5, 1.0)).to(torch.float32)
+        soft = torch.softmax(up.permute(0, 2, 3, 1), dim=-1) if need_soft else None
+        return values, soft
 
 
 class ResSegNet(_ResSegBase):
@@ -125,7 +151,7 @@ class ResSegNet(_ResSegBase):
 
     sta_channels = 1
 
-    def _sta_map(self, sta, size):
+    def _sta_map(self, sta, size, need_soft=False):
         # Sigmoid, then upsample (nets/sfd2.py:179-180).
         return F.interpolate(torch.sigmoid(sta), size=tuple(size), mode="bilinear",
-                             align_corners=False)[:, 0]
+                             align_corners=False)[:, 0], None

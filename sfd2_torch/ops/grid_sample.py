@@ -2,7 +2,8 @@
 
 Port of ``sfd2_tpu/ops/grid_sample.py``: sampling at K keypoints is a
 gather of 4 neighbours + lerp, the semantics of ``F.grid_sample``
-(``nets/extractor.py:206``) in pixel units.
+(``nets/extractor.py:206``) in pixel units; ``grid_sample_bilinear`` takes
+torch's normalised grid (the training losses' flow warps).
 """
 
 from __future__ import annotations
@@ -36,3 +37,18 @@ def sample_at_points(fmap: torch.Tensor, xy: torch.Tensor,
             + tap(y0i + 1, x0i) * (1 - wx) * wy
             + tap(y0i + 1, x0i + 1) * wx * wy)
 
+
+
+def grid_sample_bilinear(fmap: torch.Tensor, grid: torch.Tensor, align_corners: bool = False,
+                         padding_mode: str = "zeros") -> torch.Tensor:
+    """torch-style grid_sample on one image: `fmap` [H, W, C], `grid`
+    [..., 2] normalised (x, y) in [-1, 1] → [..., C] samples."""
+    h, w, _ = fmap.shape
+    gx, gy = grid[..., 0], grid[..., 1]
+    if align_corners:
+        px = (gx + 1) * 0.5 * (w - 1)
+        py = (gy + 1) * 0.5 * (h - 1)
+    else:
+        px = ((gx + 1) * w - 1) * 0.5
+        py = ((gy + 1) * h - 1) * 0.5
+    return sample_at_points(fmap, torch.stack([px, py], -1), padding_mode)

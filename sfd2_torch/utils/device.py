@@ -6,6 +6,7 @@ none raises instead of silently running on the CPU.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -16,3 +17,9 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
             f"device {dev} requested but CUDA is not available; "
             "pass device='cpu' to run the plain PyTorch path")
     return dev
+
+
+def to_device(a: np.ndarray, device) -> torch.Tensor:
+    """A small host array on `device` without waiting for the device (the
+    copy is staged; a blocking copy would synchronise with queued work)."""
+    return torch.from_numpy(a).to(device, non_blocking=True)

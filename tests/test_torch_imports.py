@@ -1,5 +1,5 @@
 """The port stands alone: importing every ``sfd2_torch`` module, or
-``chip_smoke.py``, loads nothing of JAX, Flax or the JAX package, builds
+``chip_smoke.py``, loads nothing of JAX, Flax, optax or the JAX package, builds
 no kernel, and ``chip_smoke.py`` refuses to run without a card."""
 
 import json
@@ -15,7 +15,7 @@ import pytest
 import sfd2_torch
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "sfd2_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "sfd2_tpu")
 
 
 def _port_modules():
@@ -49,7 +49,12 @@ def test_port_lists_the_slice_modules():
                  "cli.localizer", "localization.inloc", "cli.extract_features", "io.nvm",
                  "cli.colmap_from_nvm", "models.superpoint", "models.r2d2",
                  "models.baselines", "models.retrieval", "models.convert_baselines",
-                 "pipeline.extractors", "cli.extract_global"):
+                 "pipeline.extractors", "cli.extract_global", "models.convnext",
+                 "models.upernet", "training.semantics", "training.transforms",
+                 "training.data", "training.ap_loss", "training.sampler",
+                 "training.extra_losses", "training.losses", "training.train_step",
+                 "training.trainer", "training.seg_teacher", "utils.config",
+                 "utils.tb_writer", "cli.train"):
         assert f"sfd2_torch.{name}" in mods, name
 
 
