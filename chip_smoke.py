@@ -40,8 +40,9 @@ CUDA graph, ``graph_ms``), then drives the main paths:
   matched with the NNR preset (K4), with bundle adjustment (K3);
 - in both map phases every ``bundle_adjust`` call (its LM iterations
   replayed from a CUDA graph) is run again through the same LM iteration
-  stepped eagerly on the card (``ba_eager_s``): costs within 1e-4, and,
-  with ``index_add_``'s summation order fixed, poses and points too;
+  stepped eagerly on the card (``ba_eager_s``): costs, poses and points
+  within 1e-4; and run a second time, graph and eager alike, without
+  deterministic algorithms: the same bits (BA sums in one fixed order);
 - ``match_pairs`` on the large-bank route: 3 images × 68,992 keypoints ×
   C=128 and 3 × 19,584 × C=512 (D2-Net's width; each the first bank size
   the JAX package sends to its tiled kernels at that width), pairs (0,1),
@@ -67,7 +68,17 @@ CUDA graph, ``graph_ms``), then drives the main paths:
   NaN batch (``train``); the convergence recipe of
   ``tests/test_convergence.py`` and one step against the CPU
   (``train_converge``); the trained ``last.ckpt`` through ``Extractor``
-  (K1 at [4,1024,1024,3]) against the unfused stem (``train_extract``).
+  (K1 at [4,1024,1024,3]) against the unfused stem (``train_extract``);
+- training's data sources (``train_sources``): an Aachen layout and a
+  debug folder written to disk, label maps from the seeded segmentor
+  (``cli/segment_images.py::segment_folder``), ``Trainer`` over
+  ``build_data_source("DSF")`` with those labels;
+- the mesh (``mesh``), right after ``localize``: meshes of the card's
+  devices and of four entries of cuda:0; sharded matching (K2 at
+  [64,4096,128] and [16,4096,128], K4 at [16,4096,128]) bit-identical to
+  the unsharded kernels, ``localize`` with a mesh bit-identical to the
+  ``localize`` phase, ``Extractor`` over the mesh (K1), and one
+  data-parallel train step at world size 1 over ``nccl``.
 Every kernel's launch count and launch-shape record is set to 0 just
 before each path and read just after. A shape a main path launched that
 the kernel phases did not compare is compared afterwards, so every launch
@@ -95,13 +106,14 @@ import tempfile
 import threading
 import time
 import urllib.request
-import warnings
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from sfd2_torch.cli.segment_images import segment_folder
 from sfd2_torch.geometry.cameras import Camera, canonicalize_params
 from sfd2_torch.geometry.np_pose import camera_center, pose_error
 from sfd2_torch.geometry.pose import pose_error as pose_error_tensors
@@ -126,8 +138,11 @@ from sfd2_torch.ops.cuda_nn_argmax import nn_argmax_cuda
 from sfd2_torch.ops.cuda_nn_top2 import nn_top2_cuda
 from sfd2_torch.ops.cuda_stem import StemWeights, fused_stem_cuda, stem_launch, stem_lib
 from sfd2_torch.ops.gather import gather_rows_plain
-from sfd2_torch.ops.matching import (mutual_nn_match, mutual_nn_ratio_match, nn_argmax, nn_top2,
-                                    tiled_route)
+from sfd2_torch.ops.matching import (mutual_nn_match, mutual_nn_match_with_labels,
+                                    mutual_nn_ratio_match, nn_argmax, nn_top2, tiled_route)
+from sfd2_torch.ops.sharded_match import make_sharded_pair_matcher, query_vs_sharded_bank
+from sfd2_torch.parallel import make_mesh
+from sfd2_torch.parallel.distributed import convert_sync_batchnorm, init_process_group
 from sfd2_torch.ops.stem import fused_stem_apply, repack_stem_params, unpack_stem_params
 from sfd2_torch.pipeline.extract import EXTRACTION_CONFS, ExtractionConfig, Extractor
 from sfd2_torch.pipeline.extractors import (BaselineConfig, build_model, caps_describe, dynamic_load,
@@ -145,15 +160,21 @@ from sfd2_torch.sfm.tracks import track_edges, union_find_roots_plain
 from sfd2_torch.utils.profiling import trace
 from sfd2_torch.utils.synth import build_corridor_scene
 from sfd2_torch.models.superpoint import SuperPoint
-from sfd2_torch.models.upernet import seeded_segmentor
+from sfd2_torch.models.upernet import Segmentor, SegmentorConfig, seeded_segmentor
 from sfd2_torch.pipeline import extract as pipeline_extract
-from sfd2_torch.training.data import ArrayDataset, PairLoader, SyntheticPairBuilder
+from sfd2_torch.training.data import (ArrayDataset, PairLoader, PrecomputedPairBuilder,
+                                      SyntheticPairBuilder, warp_perspective)
+from sfd2_torch.training.datasets_aachen import build_data_source
+from sfd2_torch.training.flow_pairs import flow_to_png, png_to_flow
 from sfd2_torch.training.losses import SegLossConfig
 from sfd2_torch.training.sampler import NghSampler2DS
-from sfd2_torch.training.seg_teacher import SegTeacher, SegTeacherLoader
+from sfd2_torch.training.seg_teacher import (LabelDirPairs, LabelDirTeacher, SegTeacher,
+                                             SegTeacherLoader)
 from sfd2_torch.training.train_step import (TrainBatch, TrainConfig, TrainState, guarded_state,
                                             make_optimizer, make_train_step, set_lr)
 from sfd2_torch.training.trainer import Trainer, TrainerConfig, batch_to_device, load_model_state
+from sfd2_torch.utils.benchtime import cuda_fence, measure_rtt, timed_per_item
+from sfd2_torch.utils.image_io import write_png
 
 # H100 SXM peaks (NVIDIA data sheet, 700 W): f32 outside the tensor cores,
 # dense TF32 and bf16 on the tensor cores, and HBM bandwidth. The bound of
@@ -1401,16 +1422,19 @@ def run_train_converge(device, steps: int = 200, seed: int = CONVERGE_SEED) -> d
                 finite=bool(np.all(np.isfinite(losses))))
 
 
-def step_grads(device, positions, dtype=torch.float32):
+def step_grads(device, positions, dtype=torch.float32, group=None):
     """One train step of the converge setting from the seeded init on
-    `device` with the given sampler positions: (losses, gradients)."""
+    `device` with the given sampler positions: (losses, gradients); with a
+    process `group`, the data-parallel step (synchronised BatchNorm)."""
     batch_np, _ = shifted_pair_batch(np.random.default_rng(3))
     model, sp = converge_models()
     model, sp = model.to(device, dtype), sp.to(device, dtype)
+    if group is not None:
+        convert_sync_batchnorm(model, group)
     cfg = converge_cfg()
     state = TrainState(model=model, optimizer=make_optimizer(cfg, model))
-    _, metrics = make_train_step(model, sp, cfg)(state, np_batch_on(batch_np, device, dtype),
-                                                 None, positions)
+    _, metrics = make_train_step(model, sp, cfg, group=group)(
+        state, np_batch_on(batch_np, device, dtype), None, positions)
     return ({k: float(v) for k, v in metrics.items()},
             {n: p.grad.detach().double().cpu().numpy() for n, p in model.named_parameters()})
 
@@ -1530,6 +1554,335 @@ def phase_train_extract(results, run_dir):
                 f"train_extract: {a['agree']:.4f} of keypoints agree with the unfused stem")
         require(a["desc_max_abs_err"] <= 1e-4 and a["score_max_abs_err"] <= 1e-4,
                 f"train_extract: descriptors/scores differ by {a}")
+
+
+# ---------------------------------------------------------------------------
+# Training's data sources and the mesh (slice 11)
+# ---------------------------------------------------------------------------
+
+SOURCES = dict(n_db=4, n_debug=4, hw=(768, 1024), crop=512, batch_size=4, iters=2, epochs=3,
+               workers=4)
+# A known homography: point p of the first image of a flow pair lands at
+# FLOW_H · p in the second, which is the first warped by it.
+FLOW_H = np.array([[1.02, 0.03, -12.0], [-0.02, 0.99, 8.0], [1e-5, -2e-5, 1.0]])
+
+
+def write_jpeg(path: Path, img: np.ndarray):
+    """A float RGB image as a JPEG, whatever the file's extension (the
+    Aachen style-transfer stills are named ``<tag>.jpg.st_*``)."""
+    import cv2
+
+    path.parent.mkdir(parents=True, exist_ok=True)
+    bgr = np.clip(np.rint(img[..., ::-1] * 255.0), 0, 255).astype(np.uint8)
+    path.write_bytes(cv2.imencode(".jpg", bgr)[1].tobytes())
+
+
+def write_sources(root: Path, n_db: int, n_debug: int, hw, seed: int) -> dict:
+    """An Aachen layout (db images, style-transfer stills, optical-flow
+    pairs from FLOW_H) and a debug folder of PNGs under `root`; the flow
+    PNGs read back beside the flow written (``flow_png``)."""
+    h, w = hw
+    aachen = root / "aachen"
+    db = aachen / "images_upright" / "db"
+    images = textured_images(n_db + n_debug, h, seed, width=w)
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float64)
+    p = np.stack([xs, ys, np.ones_like(xs)], -1) @ FLOW_H.T
+    target = p[..., :2] / p[..., 2:]
+    flow = (target - np.stack([xs, ys], -1)).astype(np.float32)
+    mask = (target[..., 0] >= 0) & (target[..., 0] < w) & (target[..., 1] >= 0) & \
+        (target[..., 1] < h)
+    flow_err, stored = 0.0, True
+    for i in range(n_db):
+        img = images[i]
+        if i % 2:  # the second of a flow pair: the first warped by FLOW_H
+            img = warp_perspective(images[i - 1], FLOW_H, (w, h))
+        write_jpeg(db / f"{1000 + i}.jpg", img)
+        if i % 2 == 0:
+            write_jpeg(aachen / "style_transfer" / f"{1000 + i}.jpg.st_0",
+                       np.clip(0.8 * img + 0.1, 0.0, 1.0))
+        else:
+            name = f"{1000 + i - 1}_{1000 + i}.png"
+            for sub in ("flow", "mask"):
+                (aachen / "optical_flow" / sub).mkdir(parents=True, exist_ok=True)
+            q = flow_to_png(flow, aachen / "optical_flow" / "flow" / name)
+            write_png(aachen / "optical_flow" / "mask" / name, mask.astype(np.uint8) * 255)
+            back = png_to_flow(aachen / "optical_flow" / "flow" / name)
+            stored &= bool(np.array_equal(back, q))
+            flow_err = max(flow_err, float(np.abs(back - flow).max()))
+    (root / "debug").mkdir(parents=True, exist_ok=True)
+    for i in range(n_debug):
+        write_png(root / "debug" / f"{i:03d}.png",
+                  np.clip(np.rint(images[n_db + i] * 255.0), 0, 255).astype(np.uint8))
+    return dict(aachen=aachen, debug=root / "debug",
+                flow_png=dict(max_abs_err_px=flow_err, decoded_equals_stored=stored,
+                              valid_share=float(mask.mean())))
+
+
+def source_names(dataset, root: Path) -> list:
+    """The img1 path (relative to `root`) of every pair of
+    ``build_data_source("DSF")``: the debug images, then the db image of
+    each style-transfer still, then the first db image of each flow pair."""
+    debug, still, flows = dataset.datasets
+    names = list(debug.base.paths)
+    names += [still.base.paths[i] for i, _ in still.pairs]
+    names += [flows.db._base / flows.db.imgs[a] for a, _, _ in flows.pairs]
+    return [str(Path(p).relative_to(root)) for p in names]
+
+
+def run_train_sources(device, root: Path, teacher_model=None, seg_mode: str = "slide",
+                      **shape) -> dict:
+    """The `train_sources` phase on `device`: write the sources, label every
+    image with the seeded ConvNeXt-B UPerNet (``cli/segment_images.py``'s
+    `segment_folder`), then train from ``build_data_source("DSF")`` with the
+    labels (``LabelDirPairs``), every step logged and timed by stage.
+    `shape` overrides SOURCES."""
+    shape = {**SOURCES, **shape}
+    data = root / "data"
+    src = write_sources(data, shape["n_db"], shape["n_debug"], shape["hw"], SEED + 40)
+    seg = Segmentor(teacher_model or seeded_segmentor(seed=SEED), SegmentorConfig(mode=seg_mode),
+                    device=device)
+    sync = device_sync(device)
+    t0 = time.perf_counter()
+    n_labelled = sum(segment_folder(seg, data / sub, root / "labels" / sub)
+                     for sub in ("aachen/images_upright", "debug"))
+    sync()
+    label_s = time.perf_counter() - t0
+    crop = shape["crop"]
+    ds = build_data_source("DSF", crop=crop, aachen_root=src["aachen"], debug_root=src["debug"],
+                           seed=SEED)
+    pairs = LabelDirPairs(ds, LabelDirTeacher(root / "labels"), source_names(ds, data))
+    loader = PairLoader(pairs, PrecomputedPairBuilder(crop=crop), batch_size=shape["batch_size"],
+                        seed=SEED, workers=shape["workers"], iters_per_epoch=shape["iters"])
+    timer = SyncTimer(device)
+    cfg = TrainerConfig(epochs=shape["epochs"], iters_per_epoch=shape["iters"],
+                        batch_size=shape["batch_size"], log_every=1, save_dir=str(root),
+                        run_name="sources", train=TrainConfig())
+    trainer = Trainer(loader, cfg, seed=SEED, device=device, timer=timer)
+    t0 = time.perf_counter()
+    trainer.train()
+    sync()
+    train_s = time.perf_counter() - t0
+    n = shape["epochs"] * shape["iters"]
+    ms = timer.ms
+    per_step = [ms["loader"][i] + ms["upload"][i] + ms["step"][i] for i in range(n)]
+    logged = [json.loads(line) for line in
+              (trainer.run_dir / "metrics.jsonl").read_text().splitlines()]
+    losses = [r["loss"] for r in logged]
+    batch = next(iter(loader.epoch(0)))
+    return dict(
+        pairs=len(ds), sources={"D": len(ds.datasets[0]), "S": len(ds.datasets[1]),
+                                "F": len(ds.datasets[2])},
+        image_hw=list(shape["hw"]), crop=crop, batch_size=shape["batch_size"], steps=n,
+        labelled_images=n_labelled, label_s=label_s, label_ms_per_img=label_s * 1e3 / n_labelled,
+        seg_mode=seg_mode, flow_png=src["flow_png"], train_s=train_s,
+        first_step_ms=per_step[0], median_ms_per_step=float(np.median(per_step[1:])),
+        split_median_ms={k: float(np.median(ms[k][1:])) for k in
+                         ("loader", "upload", "forward", "backward", "optimizer")},
+        losses=losses, first_loss=losses[0], last_loss=losses[-1],
+        loss_terms=sorted(logged[0]), seg1_in_batches="seg1" in batch,
+        seg1_labelled_share=float((batch["seg1"] > 0).mean()) if "seg1" in batch else 0.0)
+
+
+def phase_train_sources(results, root: Path):
+    reset_launches()
+    out = run_train_sources("cuda", root)
+    results["main_path"].append(read_launches())
+    emit("train_sources", **out)
+    fp = out["flow_png"]
+    require(fp["decoded_equals_stored"] and fp["max_abs_err_px"] <= 1 / 32 + 1e-5,
+            f"train_sources: the flow PNG reads back {fp}")
+    require(out["labelled_images"] == SOURCES["n_db"] + SOURCES["n_debug"],
+            f"train_sources: {out['labelled_images']} images labelled")
+    require(out["seg1_in_batches"] and out["seg1_labelled_share"] > 0.9,
+            "train_sources: the batches carry no labels")
+    require({"seg_det_loss", "seg_desc_loss"} <= set(out["loss_terms"]),
+            f"train_sources: loss terms {out['loss_terms']}")
+    require(all(np.isfinite(out["losses"])), "train_sources: a loss is not finite")
+    k = SOURCES["iters"]
+    require(np.mean(out["losses"][-k:]) < np.mean(out["losses"][:k]),
+            f"train_sources: losses do not fall {out['losses']}")
+
+
+MESH_BANK = (64, 4096, 128)  # the localize phase's query against its banks
+MESH_PAIRS = (16, 4096, 128)  # a map build's pair batch
+
+
+def timed_ms(fn, rtt: float) -> float:
+    """ms per call by ``utils/benchtime.py``'s paired windows, fenced by a
+    CUDA event."""
+    return timed_per_item(fn, cuda_fence, iters=3, inner=4, rtt=rtt) * 1e3
+
+
+def mesh_cases():
+    """The localize query against [64,4096,128] banks with labels, and a
+    [16,4096,128] pair batch."""
+    b, n, c = MESH_BANK
+    d0, bank, v0, v1, _, _ = pair_case(b, n, n, c, True, SEED + 50)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 51)
+    l0 = torch.randint(0, 4, (n,), generator=gen, device="cuda")
+    l1 = torch.randint(0, 4, (b, n), generator=gen, device="cuda")
+    b, n, c = MESH_PAIRS
+    pairs = pair_case(b, n, n, c, False, SEED + 52)[:4]
+    return (d0, bank, v0, v1, l0, l1), pairs
+
+
+def unsharded_nnr(d0, d1, v0, v1):
+    return mutual_nn_ratio_match_cuda(d0, d1, RATIO, v0, v1)
+
+
+def drive_mesh_matching(meshes: dict, bank_case, pairs) -> dict:
+    """Each mesh's sharded matchers once: the query against the split bank
+    (labels off: K2; on: the plain label-aware matcher) and the pair batch
+    split for NNM (K2) and NNR (K4)."""
+    d0, bank, v0, v1, l0, l1 = bank_case
+    got = {}
+    for name, mesh in meshes.items():
+        got[f"bank_{name}"] = query_vs_sharded_bank(mesh, d0[0], bank, v0[0], v1)
+        got[f"bank_labels_{name}"] = query_vs_sharded_bank(mesh, d0[0], bank, v0[0], v1, l0, l1)
+        for mode in ("nnm", "nnr"):
+            got[f"pairs_{mode}_{name}"] = make_sharded_pair_matcher(mesh, mode, RATIO)(*pairs)
+    return got
+
+
+def check_mesh_matching(meshes: dict, bank_case, pairs, got: dict, rtt: float) -> dict:
+    """Each sharded result against the unsharded K2/K4 call (bit-identical
+    matches and scores), and the time of both."""
+    d0, bank, v0, v1, l0, l1 = bank_case
+    b, n = bank.shape[:2]
+    refs = {"bank": mutual_nn_match_cuda(d0, bank, v0, v1),
+            "bank_labels": mutual_nn_match_with_labels(d0, bank, l0[None].expand(b, n), l1, v0, v1),
+            "pairs_nnm": mutual_nn_match_cuda(*pairs), "pairs_nnr": unsharded_nnr(*pairs)}
+    out = {key: dict(identical=all(torch.equal(a, r)
+                                   for a, r in zip(res, refs[key.rsplit("_", 1)[0]])),
+                     matches=int((res[0] >= 0).sum())) for key, res in got.items()}
+    for name, mesh in meshes.items():
+        out[f"bank_{name}"]["ms"] = timed_ms(
+            lambda m=mesh: query_vs_sharded_bank(m, d0[0], bank, v0[0], v1), rtt)
+        for mode in ("nnm", "nnr"):
+            out[f"pairs_{mode}_{name}"]["ms"] = timed_ms(
+                lambda f=make_sharded_pair_matcher(mesh, mode, RATIO): f(*pairs), rtt)
+    out["bank_unsharded_ms"] = timed_ms(lambda: mutual_nn_match_cuda(d0, bank, v0, v1), rtt)
+    out["pairs_nnm_unsharded_ms"] = timed_ms(lambda: mutual_nn_match_cuda(*pairs), rtt)
+    out["pairs_nnr_unsharded_ms"] = timed_ms(lambda: unsharded_nnr(*pairs), rtt)
+    return out
+
+
+def check_mesh_localize(engines: dict, plain, jobs, got: dict, seq, rtt: float) -> dict:
+    """``localize`` over each mesh against the localize phase's sequential
+    pass (bit-identical poses), and ms per query over each mesh and
+    without one (`plain`, its banks uploaded by a first pass)."""
+    def ms(eng):
+        return timed_per_item(lambda: [eng.localize(*job) for job in jobs], cuda_fence,
+                              items_per_call=len(jobs), iters=2, inner=1, rtt=rtt) * 1e3
+
+    [plain.localize(*job) for job in jobs]
+    out = {name: dict(identical_to_localize=same_results(got[name], seq), ms_per_query=ms(eng))
+           for name, eng in engines.items()}
+    out["unsharded_ms_per_query"] = ms(plain)
+    return out
+
+
+def check_mesh_extraction(state, conf, extractors: dict, images, got: dict, rtt: float) -> dict:
+    """``Extractor`` over each mesh at [4,1024,1024] (bf16 trunk, as the
+    extract phase): each device's share bit for bit what one device gives
+    on that share alone, the keypoints beside the unsplit batch's, and ms
+    per image over each mesh and without one."""
+    def ms(ex):
+        return timed_per_item(lambda: ex.extract_batch(images), cuda_fence,
+                              items_per_call=len(images), iters=3, inner=1, rtt=rtt) * 1e3
+
+    plain = Extractor(state, conf, device="cuda")
+    whole = plain.extract_batch(images)
+    out = {}
+    for name, ex in extractors.items():
+        share = len(images) // ex.mesh.shape["data"]
+        alone = [f for i in range(0, len(images), share)
+                 for f in plain.extract_batch(images[i:i + share])]
+        out[name] = dict(
+            ms_per_img=ms(ex),
+            shares_identical=all(all(np.array_equal(x, y) for x, y in zip(a, b))
+                                 for a, b in zip(got[name], alone)),
+            keypoints_identical_to_unsplit=[keypoint_agreement(a, b)["agree"]
+                                            for a, b in zip(got[name], whole)],
+            keypoints=[int(len(f.keypoints)) for f in got[name]])
+    out["unsharded_ms_per_img"] = ms(plain)
+    return out
+
+
+def data_parallel_step(device="cuda") -> dict:
+    """One synchronised train step at world size 1 over ``nccl`` (the
+    converge setting: full-width ResSegNetV2 at 48²) against the plain step
+    on the card and the CPU's float64 step."""
+    positions = NghSampler2DS(**CONVERGE_SAMPLER).sample_positions(
+        torch.Generator().manual_seed(SEED), 1, 12, 12)
+    with tempfile.TemporaryDirectory() as tmp:
+        init_process_group(0, 1, Path(tmp) / "rendezvous", device=device)
+        try:
+            backend = str(dist.get_backend())
+            m_dp, g_dp = step_grads(device, positions, group=dist.group.WORLD)
+        finally:
+            dist.destroy_process_group()
+    m_dev, g_dev = step_grads(device, positions)
+    _, g_64 = step_grads("cpu", positions, torch.float64)
+    return dict(backend=backend, world_size=1,
+                loss_max_rel_err=max(abs(m_dp[k] - m_dev[k]) / max(abs(m_dev[k]), 1e-12)
+                                     for k in m_dev),
+                grad_vs_plain=grad_gap(g_dp, g_dev, g_64), grad_vs_cpu64=grad_gap(g_dp, g_64, g_64),
+                losses=m_dp)
+
+
+def phase_mesh(results, state, store, scene, seq):
+    """Meshes of the real devices (``make_mesh()``) and of four entries of
+    cuda:0: sharded matching (K2, K4), the engine's ``localize`` with a mesh
+    beside the sequential pass of ``localize``, ``Extractor`` over the mesh
+    (K1), and one data-parallel train step. The launch counts hold one run
+    of each mesh path; the references, timings and warm-ups run outside."""
+    meshes = {"devices": make_mesh(), "cuda0x4": make_mesh(devices=["cuda:0"] * 4)}
+    rtt = measure_rtt()
+    t0 = time.perf_counter()
+    bank_case, pairs = mesh_cases()
+    jobs = [(qname, scene.qinfo, [[j] for j in near]) for qname, _, _, near in scene.queries]
+    config = LocalizerConfig(**LOCALIZE_CONFIG)
+    engines = {name: LocalizationEngine(scene.map_index, store, config, device="cuda", mesh=mesh)
+               for name, mesh in meshes.items()}
+    for eng in engines.values():  # uploads the banks and captures the graphs, as `localize`
+        [eng.localize(*job) for job in jobs]
+    conf = EXTRACTION_CONFS["sfd2-n4096-r1024"]
+    images = textured_images(4, 1024, SEED + 4)
+    extractors = {name: Extractor(state, conf, device="cuda", mesh=mesh)
+                  for name, mesh in meshes.items()}
+    reset_launches()
+    got_match = drive_mesh_matching(meshes, bank_case, pairs)
+    got_loc = {name: [eng.localize(*job) for job in jobs] for name, eng in engines.items()}
+    got_ext = {name: ex.extract_batch(images) for name, ex in extractors.items()}
+    counts = read_launches()
+    results["main_path"].append(counts)
+    matching = check_mesh_matching(meshes, bank_case, pairs, got_match, rtt)
+    localize = check_mesh_localize(
+        engines, LocalizationEngine(scene.map_index, store, config, device="cuda"), jobs,
+        got_loc, seq, rtt)
+    extraction = check_mesh_extraction(state, conf, extractors, images, got_ext, rtt)
+    dp = data_parallel_step()
+    emit("mesh", meshes={k: [str(d) for d in m.devices.ravel()] for k, m in meshes.items()},
+         rtt_ms=rtt * 1e3, seconds=time.perf_counter() - t0, matching=matching,
+         localize=localize, extraction=extraction, data_parallel=dp,
+         launches={k: sum(v.values()) for k, v in counts.items()},
+         launch_shapes=launches_by_shape(counts))
+    for key, row in matching.items():
+        if isinstance(row, dict):
+            require(row["identical"] and row["matches"] > 0,
+                    f"mesh: {key} differs from the unsharded call {row}")
+    for name in meshes:
+        require(localize[name]["identical_to_localize"], f"mesh: localize over {name} differs")
+        row = extraction[name]
+        require(row["shares_identical"], f"mesh: extraction over {name} differs per share")
+        require(min(row["keypoints_identical_to_unsplit"]) >= 0.99,
+                f"mesh: extraction over {name} keeps {row['keypoints_identical_to_unsplit']}")
+    require(counts["fused_stem"] and counts["mutual_nn_match"] and counts["mutual_nn_ratio_match"],
+            "mesh: K1, K2 and K4 must all run")
+    require(dp["backend"] == "nccl" and dp["loss_max_rel_err"] <= 1e-4
+            and dp["grad_vs_plain"]["max"] <= 1e-3 and dp["grad_vs_cpu64"]["max"] <= 1e-3,
+            f"mesh: the data-parallel step differs {dp}")
 
 
 @contextlib.contextmanager
@@ -2251,20 +2604,9 @@ def ba_diff(got, ref) -> dict:
                 points=(got.points - ref.points).abs().max().item())
 
 
-@contextlib.contextmanager
-def deterministic_algorithms():
-    """torch's deterministic algorithms, warnings only: ``index_add_`` on the
-    card then sums in a fixed order (a sorted ``index_put_``), so the same
-    work gives the same result on every run."""
-    prev = torch.are_deterministic_algorithms_enabled(), \
-        torch.is_deterministic_algorithms_warn_only_enabled()
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    try:
-        with warnings.catch_warnings():
-            warnings.simplefilter("ignore", UserWarning)
-            yield
-    finally:
-        torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
+def same_bits(a, b) -> bool:
+    """Two BA results equal bit for bit: poses, points and both costs."""
+    return all(torch.equal(x, y) for x, y in zip(a, b))
 
 
 def ba_against_eager(rec: RecordBA, what: str) -> dict:
@@ -2273,44 +2615,45 @@ def ba_against_eager(rec: RecordBA, what: str) -> dict:
     stepped eagerly on the same device, per call: seconds of both (and of
     ``bundle_adjust`` run again after them, when nothing is loaded for the
     first time: ``ba_graph_warm_s``); the largest differences of graph and
-    eager, and of the eager run and a second one (the spread that
-    ``index_add_``'s float atomics alone give, which ill-conditioned
-    problems amplify); and, under deterministic algorithms, of
-    ``bundle_adjust`` run again and the eager iteration."""
+    eager; and whether a second ``bundle_adjust`` and a second eager run
+    give the first ones' bits (no deterministic-algorithms mode is set: the
+    sums run in ``SegmentPlan``'s fixed order)."""
     out = dict(calls=len(rec.calls), ba_graph_s=rec.seconds, ba_eager_s=0.0,
                ba_graph_warm_s=0.0, graph_captures=bundle_adjust.graph_captures,
                graph_replays=bundle_adjust.graph_replays, capture_s=bundle_adjust.capture_s,
-               graph_vs_eager=[], eager_vs_eager=[], deterministic_graph_vs_eager=[])
+               deterministic_algorithms=torch.are_deterministic_algorithms_enabled(),
+               graph_vs_eager=[], graph_runs_identical=0, eager_runs_identical=0,
+               graph_equals_eager_bits=0)
     for problem, kwargs, got in rec.calls:
         rec.sync()
         t0 = time.perf_counter()
         ref = eager_ba(problem, kwargs)
         rec.sync()
         t1 = time.perf_counter()
-        bundle_adjust(problem, **kwargs)
+        again = bundle_adjust(problem, **kwargs)
         rec.sync()
         out["ba_eager_s"] += t1 - t0
         out["ba_graph_warm_s"] += time.perf_counter() - t1
         out["graph_vs_eager"].append(ba_diff(got, ref))
-        out["eager_vs_eager"].append(ba_diff(eager_ba(problem, kwargs), ref))
-        with deterministic_algorithms():
-            out["deterministic_graph_vs_eager"].append(
-                ba_diff(bundle_adjust(problem, **kwargs), eager_ba(problem, kwargs)))
+        out["graph_runs_identical"] += same_bits(got, again)
+        out["eager_runs_identical"] += same_bits(eager_ba(problem, kwargs), ref)
+        out["graph_equals_eager_bits"] += same_bits(got, ref)
     return out
 
 
 def check_ba_graph(rec: RecordBA, what: str):
     """A map phase's bundle adjustment on the card: it replayed a CUDA graph;
-    its costs stay within 1e-4 (relative) of the eager iteration's; and with
-    ``index_add_``'s summation order fixed (deterministic algorithms), its
-    costs, poses and points stay within 1e-4 of the eager iteration's."""
+    its costs, poses and points stay within 1e-4 of the eager iteration's;
+    and, without deterministic algorithms, a second run of every call gives
+    the first one's bits, graph and eager alike."""
     out = ba_against_eager(rec, what)
     emit(f"{what}_ba", **out)
     require(out["graph_replays"] > 0, f"{what}: bundle adjustment replayed no CUDA graph")
-    worst = max(d["cost_rel"] for d in out["graph_vs_eager"])
-    require(worst <= 1e-4, f"{what}: graph BA cost differs from eager by {worst} (relative)")
-    for d in out["deterministic_graph_vs_eager"]:
-        require(max(d.values()) <= 1e-4, f"{what}: deterministic graph BA differs from eager: {d}")
+    require(not out["deterministic_algorithms"], f"{what}: deterministic algorithms are on")
+    for d in out["graph_vs_eager"]:
+        require(max(d.values()) <= 1e-4, f"{what}: graph BA differs from eager: {d}")
+    for k in ("graph_runs_identical", "eager_runs_identical"):
+        require(out[k] == out["calls"], f"{what}: {k} {out[k]} of {out['calls']} BA calls")
 
 
 def gt_point(map_index, image_id: int, kp: int):
@@ -2624,6 +2967,7 @@ def main():
     phase_extract(results, state)
     phase_extract_r1600_ms(results, state)
     store, scene, seq = phase_localize(results)
+    phase_mesh(results, state, store, scene, seq)
     phase_serve(results, store, scene, seq)
     phase_localizer(results, store, scene, seq)
     phase_inloc(results, store, scene)
@@ -2636,6 +2980,7 @@ def main():
         run_dir = phase_train(results, Path(train_root))
         phase_train_converge(results)
         phase_train_extract(results, run_dir)
+        phase_train_sources(results, Path(train_root))
 
     shapes = {name: sum((run[name] for run in results["main_path"]), collections.Counter())
               for name in KERNELS}

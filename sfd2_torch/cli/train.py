@@ -3,12 +3,14 @@
 Port of ``sfd2_tpu/cli/train.py`` (``train.py``: argparse defaults
 overridden by a JSON config file, dataset selection, sampler and loss
 construction, the Trainer loop with resume) plus ``--device`` (default
-``cuda``). ``--image_dirs`` (image folders, concatenated) builds
-homography pairs with ``SyntheticPairBuilder``; ``--segmentor_ckpt`` (an
-mmseg UPerNet-ConvNeXt checkpoint) or ``--segmentor_random`` turn on the
-online semantic teacher. ``--data_sources`` and ``--flow_pair_list`` need
-the Aachen and optical-flow datasets, which are not ported yet and are
-refused.
+``cuda``). The training pairs come from ``--data_sources`` (the
+reference's W/A/S/F/D letter codes, ``training/datasets_aachen.py``), or
+``--flow_pair_list`` (lines of ``img1 img2 flow.png mask.png`` under
+``--pair_image_root``, ``training/flow_pairs.py``), or ``--image_dirs``
+(image folders, concatenated, homography pairs by
+``SyntheticPairBuilder``), in that order. ``--segmentor_ckpt`` (an mmseg
+UPerNet-ConvNeXt checkpoint) or ``--segmentor_random`` turn on the online
+semantic teacher.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ import logging
 from pathlib import Path
 
 from sfd2_torch.training.data import (CatDataset, ImageFolderDataset, PairLoader,
-                                      SyntheticPairBuilder)
+                                      PrecomputedPairBuilder, SyntheticPairBuilder)
 from sfd2_torch.training.losses import SegLossConfig
 from sfd2_torch.training.sampler import make_sampler
 from sfd2_torch.training.train_step import TrainConfig
@@ -26,20 +28,18 @@ from sfd2_torch.training.trainer import Trainer, TrainerConfig
 from sfd2_torch.utils.config import apply_json_overlay, save_args
 from sfd2_torch.utils.device import resolve_device
 
-NOT_PORTED = ("needs training/{datasets_aachen,flow_pairs}.py, which are not ported yet "
-              "(ROADMAP.md §1 item 10b); use --image_dirs")
-
-
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--config", type=Path, default=None,
                         help="JSON file overriding any argument")
     parser.add_argument("--image_dirs", nargs="+", default=[])
     parser.add_argument("--flow_pair_list", type=Path, default=None,
-                        help="precomputed-flow pairs (not ported yet: refused)")
+                        help="file of 'img1 img2 flow.png mask.png' lines "
+                             "(precomputed-flow pairs, e.g. Aachen optical-flow)")
     parser.add_argument("--pair_image_root", type=Path, default=None)
     parser.add_argument("--data_sources", default=None,
-                        help="reference W/A/S/F/D letter codes (not ported yet: refused)")
+                        help="reference W/A/S/F/D letter codes (train.py:45-51) "
+                             "over --aachen_root/--web_root/--debug_root")
     parser.add_argument("--aachen_root", type=Path, default=None)
     parser.add_argument("--web_root", type=Path, default=None)
     parser.add_argument("--debug_root", type=Path, default=None)
@@ -70,17 +70,28 @@ def main(argv=None):
     args = apply_json_overlay(args, args.config)
 
     logging.basicConfig(level=logging.INFO)
-    if args.data_sources:
-        parser.error(f"--data_sources {NOT_PORTED}")
-    if args.flow_pair_list:
-        parser.error(f"--flow_pair_list {NOT_PORTED}")
     device = resolve_device(args.device)
-    datasets = [ImageFolderDataset(d) for d in args.image_dirs]
-    if not datasets:
-        parser.error("--image_dirs: give at least one image folder")
-    dataset = datasets[0] if len(datasets) == 1 else CatDataset(datasets)
-    loader = PairLoader(dataset, SyntheticPairBuilder(crop=args.R), batch_size=args.bs,
-                        workers=args.workers, iters_per_epoch=args.iters_per_epoch)
+    if args.data_sources:
+        from sfd2_torch.training.datasets_aachen import build_data_source
+
+        dataset = build_data_source(args.data_sources, crop=args.R, aachen_root=args.aachen_root,
+                                    web_root=args.web_root, debug_root=args.debug_root)
+        builder = PrecomputedPairBuilder(crop=args.R)
+    elif args.flow_pair_list:
+        from sfd2_torch.training.flow_pairs import FlowPairDataset
+
+        entries = [tuple(line.split(" ")[:4])
+                   for line in Path(args.flow_pair_list).read_text().splitlines() if line.strip()]
+        dataset = FlowPairDataset(args.pair_image_root or Path("."), entries)
+        builder = PrecomputedPairBuilder(crop=args.R)
+    else:
+        datasets = [ImageFolderDataset(d) for d in args.image_dirs]
+        if not datasets:
+            parser.error("give --data_sources, --flow_pair_list or --image_dirs")
+        dataset = datasets[0] if len(datasets) == 1 else CatDataset(datasets)
+        builder = SyntheticPairBuilder(crop=args.R)
+    loader = PairLoader(dataset, builder, batch_size=args.bs, workers=args.workers,
+                        iters_per_epoch=args.iters_per_epoch)
     if args.segmentor_ckpt or args.segmentor_random:
         from sfd2_torch.training.seg_teacher import SegTeacher, SegTeacherLoader
 

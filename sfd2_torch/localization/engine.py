@@ -30,7 +30,9 @@ Throughput paths:
   programs);
 * ``inject_db_features`` registers device-born DB banks.
 
-The sharded multi-device matcher of the JAX engine is not ported yet.
+With a ``mesh`` the query's DB banks are split over its devices
+(``ops/sharded_match.py::query_vs_sharded_bank``), as the JAX engine's
+shard_map program splits them.
 """
 
 from __future__ import annotations
@@ -135,7 +137,12 @@ def _best_single(cfg: LocalizerConfig, inliers, q_ids, p3d_rows, per_db, cluster
 
 class LocalizationEngine:
     def __init__(self, map_index: MapIndex, feature_store: FeatureStore,
-                 config: LocalizerConfig = LocalizerConfig(), device="cuda"):
+                 config: LocalizerConfig = LocalizerConfig(), device="cuda", mesh=None):
+        """`mesh`: an optional ``parallel.mesh.Mesh`` with a 'data' axis: a
+        query's candidate DB banks are split over it and matched by
+        ``ops/sharded_match.py::query_vs_sharded_bank``, one share per
+        device; banks stay cached on `device`."""
+        self.mesh = mesh
         self.map = map_index
         self.features = feature_store
         self.cfg = config
@@ -257,11 +264,22 @@ class LocalizationEngine:
         DB bank, DB rows restricted to keypoints with 3D points. Returns
         matches [D, K] int64 (−1 for no match)."""
         d_pad = _bucket(len(db_ids))
+        if self.mesh is not None:  # whole shares per device
+            n_dev = self.mesh.shape["data"]
+            d_pad = -(-d_pad // n_dev) * n_dev
         c = q_desc.shape[1]
         entries = [self._db_feats_dev(iid) for iid in db_ids]
         entries += [self._dev_zero(c)] * (d_pad - len(db_ids))
         bank = torch.stack([e[0] for e in entries])
         bval = torch.stack([e[1] for e in entries])
+        if self.mesh is not None:
+            from sfd2_torch.ops.sharded_match import query_vs_sharded_bank
+
+            matches, _ = query_vs_sharded_bank(
+                self.mesh, q_desc, bank, q_valid, bval,
+                q_labels if self._label_aware else None,
+                torch.stack([e[2] for e in entries]) if self._label_aware else None)
+            return matches[: len(db_ids)].cpu().numpy().astype(np.int64)
         q = q_desc.to(bank.dtype)[None].expand(d_pad, *q_desc.shape)
         qv = q_valid[None].expand(d_pad, q_valid.shape[0])
         if self._label_aware:

@@ -3,15 +3,14 @@
 The JAX package's Pallas kernels appear under the port's names: the CUDA
 wrappers ``mutual_nn_match_cuda`` (K2), ``mutual_nn_ratio_match_cuda`` (K4),
 ``nn_argmax_cuda`` (K5) and ``nn_top2_cuda`` (K6), each beside its plain
-version. ``grid_sample_bilinear`` (dense-map sampling for the training
-samplers) is not ported yet; ``sample_at_points`` is.
+version.
 
 ``matching`` comes before the CUDA wrappers, which import it.
 """
 
 from sfd2_torch.ops.nms import simple_nms
 from sfd2_torch.ops.resize import resize_bilinear
-from sfd2_torch.ops.grid_sample import sample_at_points
+from sfd2_torch.ops.grid_sample import grid_sample_bilinear, sample_at_points
 from sfd2_torch.ops.extract import extract_keypoints
 from sfd2_torch.ops.matching import (
     batch_matcher,

@@ -12,6 +12,11 @@ own batch, and merged across scales on the host. Semantic label maps
 (``nets/extractor.py:240-326``) make the top-K labelled-first and give
 each keypoint its label.
 
+With a ``mesh`` (``parallel/mesh.py``) each batch is split over the
+mesh's ``data`` axis, padded with empty images to whole shares: every
+device holds a replica of the model and the stem's weights, runs its
+share (kernel K1 on CUDA) and returns its own packed result.
+
 Differences from the JAX pipeline: buckets are rounded to
 ``pad_multiple`` only (the W%256 / H%16 rounding existed for the TPU
 stem kernel); the stem always runs fused.
@@ -22,7 +27,7 @@ from __future__ import annotations
 import dataclasses
 import logging
 from pathlib import Path
-from typing import Dict, Iterable, List, Mapping, Sequence, Tuple
+from typing import Dict, Iterable, List, Mapping, NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -33,6 +38,7 @@ from sfd2_torch.ops.cuda_stem import StemWeights, fused_stem_cuda
 from sfd2_torch.ops.extract import extract_keypoints
 from sfd2_torch.ops.resize import resize_bilinear
 from sfd2_torch.ops.stem import repack_stem_params
+from sfd2_torch.parallel.mesh import put_batch, put_replicated, shard_batch
 from sfd2_torch.utils.device import resolve_device
 
 # ImageNet normalisation (``nets/extractor.py:14-15``).
@@ -144,14 +150,26 @@ def _pow2_ceil(n: int) -> int:
     return p
 
 
+class _Replica(NamedTuple):
+    """What one device needs to run the extraction program."""
+
+    model: ResSegNetV2
+    stem: StemWeights
+    mean: torch.Tensor
+    std: torch.Tensor
+
+
 class Extractor:
-    """Batched single-scale extraction on one device."""
+    """Batched extraction on one device, or split over a mesh."""
 
     def __init__(self, state_dict: Mapping[str, torch.Tensor],
-                 config: ExtractionConfig = ExtractionConfig(), device="cuda"):
+                 config: ExtractionConfig = ExtractionConfig(), device="cuda", mesh=None):
         """`state_dict`: a ResSegNetV2 state_dict in the reference's names
-        (``models/convert.py``)."""
+        (``models/convert.py``). `mesh`: an optional ``parallel.mesh.Mesh``
+        with a 'data' axis over which every batch is split; batches are
+        assembled on `device`."""
         self.device = resolve_device(device)
+        self.mesh = mesh
         if config.bf16 is None:
             config = dataclasses.replace(config, bf16=self.device.type == "cuda")
         logging.getLogger(__name__).info(
@@ -162,10 +180,14 @@ class Extractor:
                             require_stability="ConvSta.weight" in state_dict)
         model.load_state_dict(state_dict)
         dtype = torch.bfloat16 if config.bf16 else torch.float32
-        self.model = model.eval().to(self.device, dtype)
-        self.stem = StemWeights(repack_stem_params(state_dict), self.device)
-        self._mean = torch.as_tensor(_RGB_MEAN, device=self.device)
-        self._std = torch.as_tensor(_RGB_STD, device=self.device)
+        model = model.eval().to(dtype)
+        stem = repack_stem_params(state_dict)
+        devices = [self.device] if mesh is None else shard_batch(mesh)
+        models = [model.to(self.device)] if mesh is None else put_replicated(mesh, model, "data")
+        self._replicas = [_Replica(m, StemWeights(stem, d), torch.as_tensor(_RGB_MEAN, device=d),
+                                   torch.as_tensor(_RGB_STD, device=d))
+                          for m, d in zip(models, devices)]
+        self.model = self._replicas[0].model
 
     def _pad_hw(self, h: int, w: int) -> Tuple[int, int]:
         m = self.cfg.pad_multiple
@@ -195,15 +217,16 @@ class Extractor:
 
     @torch.inference_mode()
     def _run(self, images_u8: torch.Tensor, sizes: torch.Tensor,
-             label_map: torch.Tensor | None = None) -> torch.Tensor:
+             label_map: torch.Tensor | None = None, replica: _Replica | None = None
+             ) -> torch.Tensor:
         """Device program: normalise → stem → trunk/heads → keypoints; one
         packed [B, K, 4+C(+1)] float32 result (xy, score, descriptor, valid
         and, with a label map, the label: ids < 2^24 are exact in f32)."""
         cfg = self.cfg
-        x = (images_u8.float() / 255.0 - self._mean) / self._std
-        out1c = fused_stem_cuda(x, self.stem,
-                                torch.bfloat16 if cfg.bf16 else torch.float32)
-        out = self.model.forward_from_out1c(out1c)
+        rep = replica or self._replicas[0]
+        x = (images_u8.float() / 255.0 - rep.mean) / rep.std
+        out1c = fused_stem_cuda(x, rep.stem, torch.bfloat16 if cfg.bf16 else torch.float32)
+        out = rep.model.forward_from_out1c(out1c)
         score = out.score
         h, w = images_u8.shape[1], images_u8.shape[2]
         if score.shape[1] != h or score.shape[2] != w:
@@ -216,6 +239,26 @@ class Extractor:
         if kp.labels is not None:
             parts.append(kp.labels[..., None].float())
         return torch.cat(parts, dim=-1)
+
+    def _run_packed(self, images_u8: torch.Tensor, sizes: torch.Tensor,
+                    label_map: torch.Tensor | None) -> np.ndarray:
+        """`_run` on the host's side: one fetch per device. Over a mesh the
+        batch is padded with empty 1×1 images to whole shares, each device
+        runs its share, and the padding is dropped."""
+        if self.mesh is None:
+            return self._run(images_u8, sizes, label_map).cpu().numpy()
+        b = images_u8.shape[0]
+        n = len(self._replicas)
+        pad = -(-b // n) * n - b
+        if pad:
+            images_u8 = torch.cat([images_u8, images_u8.new_zeros((pad, *images_u8.shape[1:]))])
+            sizes = torch.cat([sizes, sizes.new_ones((pad, 2))])
+            if label_map is not None:
+                label_map = torch.cat([label_map,
+                                       label_map.new_zeros((pad, *label_map.shape[1:]))])
+        shares = put_batch(self.mesh, (images_u8, sizes, label_map))
+        packed = [self._run(*share, replica=rep) for share, rep in zip(shares, self._replicas)]
+        return np.concatenate([p.cpu().numpy() for p in packed])[:b]
 
     def extract_batch(self, images: Sequence[np.ndarray],
                       label_maps: Sequence[np.ndarray] | None = None) -> List[ImageFeatures]:
@@ -262,7 +305,7 @@ class Extractor:
                     lbl_np[i, : im.shape[0], : im.shape[1]] = _resize_labels_nearest(
                         label_maps[i], im.shape[:2])
                 lbl = torch.from_numpy(lbl_np).to(self.device)
-            packed = self._run(batch, sizes, lbl).cpu().numpy()  # one fetch per batch
+            packed = self._run_packed(batch, sizes, lbl)  # one fetch per batch and device
             c = packed.shape[-1] - (5 if with_labels else 4)
             for i, im in enumerate(images):
                 if not act[i]:

@@ -9,8 +9,10 @@ groups. Matcher presets mirror ``it_loc/matcher.py:24``: NNM mutual NN
 Pairs are matched in batches of ``batch_size`` over padded [K] banks, one
 matcher launch per batch. Each image's bank is uploaded once into an LRU
 device cache, and each batch's (matches, scores) come back in one packed
-transfer. The multi-device ``mesh`` branch of the JAX package waits for
-the port of ``ops/sharded_match.py``.
+transfer. With a ``mesh`` (``parallel/mesh.py``) the cache lives on the
+mesh's first device, and each batch is padded to a multiple of the mesh's
+``data`` axis with all-invalid pairs and split over the mesh
+(``ops/sharded_match.py``), one launch per device.
 """
 
 from __future__ import annotations
@@ -47,13 +49,25 @@ class MatchConfig:
 
 def match_pairs(features: FeatureStore, pairs: Sequence[Tuple[str, str]], store: MatchStore,
                 cfg: MatchConfig = MatchConfig(), mesh=None, device="cuda") -> int:
-    """Match all pairs into `store`; resumable; returns #matched."""
-    if mesh is not None:
-        raise NotImplementedError("match_pairs: the mesh branch needs ops/sharded_match.py, "
-                                  "which is not ported yet")
-    dev = resolve_device(device)
+    """Match all pairs into `store`; resumable; returns #matched.
+
+    `mesh`: an optional ``parallel.mesh.Mesh`` with a 'data' axis, over
+    which each pair batch is split (then `device` is not used: banks are
+    cached on the axis's first device)."""
     conf = MATCHER_CONFS[cfg.matcher]
-    fn = batch_matcher(conf["mode"], conf.get("ratio", 0.9))
+    if mesh is not None:
+        from sfd2_torch.ops.sharded_match import make_sharded_pair_matcher
+        from sfd2_torch.parallel.mesh import Mesh, shard_batch
+
+        if not isinstance(mesh, Mesh):
+            raise TypeError(f"match_pairs: mesh must be a parallel.mesh.Mesh, not {type(mesh)}")
+        fn = make_sharded_pair_matcher(mesh, conf["mode"], conf.get("ratio", 0.9))
+        dev = shard_batch(mesh)[0]
+        n_dev = mesh.shape["data"]
+    else:
+        dev = resolve_device(device)
+        fn = batch_matcher(conf["mode"], conf.get("ratio", 0.9))
+        n_dev = 1
     with_labels = conf["mode"] == "nnml"
     k = cfg.max_keypoints
 
@@ -92,6 +106,10 @@ def match_pairs(features: FeatureStore, pairs: Sequence[Tuple[str, str]], store:
         chunk = todo[i: i + cfg.batch_size]
         e0 = [feats_dev(n0) for n0, _ in chunk]
         e1 = [feats_dev(n1) for _, n1 in chunk]
+        pad = -(-len(chunk) // n_dev) * n_dev - len(chunk)  # all-invalid pairs: whole shares
+        if pad:
+            e0 += [tuple(t if t is None else torch.zeros_like(t) for t in e0[0])] * pad
+            e1 += [tuple(t if t is None else torch.zeros_like(t) for t in e1[0])] * pad
         args = [torch.stack([e[0] for e in e0]), torch.stack([e[0] for e in e1]),
                 torch.stack([e[1] for e in e0]), torch.stack([e[1] for e in e1])]
         if with_labels:

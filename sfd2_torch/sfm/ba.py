@@ -6,8 +6,10 @@ delegates to COLMAP: point refinement inside ``point_triangulator``
 (``hloc/reconstruction.py:66-83``).
 
 * Observations are flat arrays (xy, camera index, point index, weight);
-  every per-camera or per-point reduction is an ``index_add_`` (the JAX
-  package's ``segment_sum``), and every per-observation read of a camera
+  every per-camera or per-point reduction is a segmented sum in a fixed
+  order (``SegmentPlan``, the JAX package's ``segment_sum``): no float
+  atomics, so a run on the card gives the same bits every time, and
+  every per-observation read of a camera
   or point block goes through the row gather, kernel K3 on the card
   (``ops/cuda_gather.py``; its plain version on CPU tensors).
 * The normal equations are never formed: the Schur complement
@@ -104,9 +106,61 @@ def _gather(table, idx):
     return gather_rows_cuda(table.contiguous(), idx)
 
 
-def _segment_sum(values, idx, n):
-    return torch.zeros((n, *values.shape[1:]), dtype=values.dtype,
-                       device=values.device).index_add_(0, idx, values)
+SEGMENT_WIDTH = 32  # rows summed per step of a SegmentPlan
+
+
+class SegmentPlan:
+    """A segmented sum over rows in one fixed order: no atomics, so the
+    same input gives the same bits on every run (``index_add_``'s float
+    atomics on CUDA add in a different order each time).
+
+    Built once from the segment id of each row (a host sync); ``__call__``
+    then launches the same fixed-shape work every time, so a CUDA graph
+    can capture it. Each level gathers the rows of every segment, in
+    order, into blocks of ``width`` (short blocks padded with a zero row)
+    and sums each block; a segment with more than ``width`` rows leaves
+    several block sums, which the next level reduces the same way, so a
+    segment of d rows takes ⌈log_width d⌉ levels and memory stays within
+    (rows + segments·width) per level. The last level lays out one block
+    per segment, in segment order, as wide as the largest remaining
+    segment (empty segments sum the zero row)."""
+
+    def __init__(self, seg: torch.Tensor, n: int, width: int = SEGMENT_WIDTH):
+        import numpy as np
+
+        seg_np = seg.detach().cpu().numpy().astype(np.int64)
+        rows = np.argsort(seg_np, kind="stable")  # row ids, grouped by segment
+        seg_sorted = seg_np[rows]
+        self.n = n
+        self.levels = []  # [n_blocks, width] int64 index into (prev rows + zero row)
+        while True:
+            counts = np.bincount(seg_sorted, minlength=n)
+            starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+            m = len(seg_sorted)
+            if counts.max(initial=0) <= width:
+                j = np.arange(max(int(counts.max(initial=0)), 1))
+                idx = np.where(j[None, :] < counts[:, None], starts[:, None] + j[None, :], m)
+                self.levels.append(np.where(idx < m, rows[np.minimum(idx, m - 1)], m)
+                                   if m else np.zeros((n, 1), np.int64))
+                break
+            n_blocks = -(-counts // width)  # blocks per segment
+            block_seg = np.repeat(np.arange(n), n_blocks)
+            first = np.repeat(starts, n_blocks) + width * (
+                np.arange(len(block_seg)) - np.repeat(np.cumsum(n_blocks) - n_blocks, n_blocks))
+            end = np.repeat(starts + counts, n_blocks)
+            idx = first[:, None] + np.arange(width)[None, :]
+            self.levels.append(np.where(idx < end[:, None], rows[np.minimum(idx, m - 1)], m))
+            # The next level reduces the block sums, already in segment order.
+            rows, seg_sorted = np.arange(len(block_seg)), block_seg
+        self.levels = [torch.from_numpy(np.ascontiguousarray(lv)).to(seg.device)
+                       for lv in self.levels]
+
+    def __call__(self, values: torch.Tensor) -> torch.Tensor:
+        """[rows, ...] → [n, ...]: the sum of each segment's rows."""
+        for idx in self.levels:
+            padded = torch.cat([values, values.new_zeros((1, *values.shape[1:]))])
+            values = padded[idx].sum(dim=1)
+        return values
 
 
 class LMState(NamedTuple):
@@ -142,6 +196,8 @@ def lm_setup(problem: BAProblem, cg_iters: int = 20, huber_delta: float = 4.0,
     base_w = problem.obs_w[order]
     cam_params_all = problem.cam_params
     n_cam, n_pt = problem.qvecs.shape[0], problem.points.shape[0]
+    # The fixed summation orders of the per-camera and per-point reductions.
+    cam_sum, pt_sum = SegmentPlan(obs_cam, n_cam), SegmentPlan(obs_point, n_pt)
     dt, dev = problem.points.dtype, problem.points.device
     free_cam = (~problem.fixed_cams).to(dt)[:, None]  # [C, 1]
     eye3 = torch.eye(3, dtype=dt, device=dev)
@@ -172,11 +228,11 @@ def lm_setup(problem: BAProblem, cg_iters: int = 20, huber_delta: float = 4.0,
         r, jc, jp, w = lin
         wj = w[:, None, None]
         jcw, jpw = jc * wj, jp * wj
-        hcc = _segment_sum(torch.einsum("oij,oik->ojk", jcw, jc), obs_cam, n_cam)  # [C,6,6]
-        hpp = _segment_sum(torch.einsum("oij,oik->ojk", jpw, jp), obs_point, n_pt)  # [P,3,3]
+        hcc = cam_sum(torch.einsum("oij,oik->ojk", jcw, jc))  # [C,6,6]
+        hpp = pt_sum(torch.einsum("oij,oik->ojk", jpw, jp))  # [P,3,3]
         rw = r * w[:, None]
-        bc = _segment_sum(torch.einsum("oij,oi->oj", jc, rw), obs_cam, n_cam)  # [C,6]
-        bp = _segment_sum(torch.einsum("oij,oi->oj", jp, rw), obs_point, n_pt)  # [P,3]
+        bc = cam_sum(torch.einsum("oij,oi->oj", jc, rw))  # [C,6]
+        bp = pt_sum(torch.einsum("oij,oi->oj", jp, rw))  # [P,3]
 
         # Damping: multiplicative λ·diag (Marquardt) on both blocks.
         diag_c = torch.clamp(torch.diagonal(hcc, dim1=-2, dim2=-1), min=1e-6)
@@ -186,11 +242,11 @@ def lm_setup(problem: BAProblem, cg_iters: int = 20, huber_delta: float = 4.0,
 
         def hcp_apply(vp):  # [P,3] → [C,6]: Σ_o w Jcᵀ Jp v_p(o)
             v = _gather(vp, obs_point)
-            return _segment_sum(torch.einsum("oij,oik,ok->oj", jcw, jp, v), obs_cam, n_cam)
+            return cam_sum(torch.einsum("oij,oik,ok->oj", jcw, jp, v))
 
         def hpc_apply(vc):  # [C,6] → [P,3]
             v = _gather(vc, obs_cam)
-            return _segment_sum(torch.einsum("oik,oij,oj->ok", jpw, jc, v), obs_point, n_pt)
+            return pt_sum(torch.einsum("oik,oij,oj->ok", jpw, jc, v))
 
         def s_apply(vc):  # S·v, matrix-free
             tmp = torch.einsum("pjk,pk->pj", hpp_inv, hpc_apply(vc))

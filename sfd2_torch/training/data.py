@@ -8,7 +8,7 @@ Port of ``sfd2_tpu/training/data.py``:
 * ``crop_pair`` and ``PairLoader`` (``tools/dataloader.py:22,148-188``: the
   crop-window search scored by flow validity, ImageNet-normalised pair +
   grayscale copies + aflow with NaN invalids + mask; a thread pool builds
-  each batch when it is asked for),
+  the next batch while the caller works on this one),
 * ``PrecomputedPairBuilder`` / ``TransformedPairBuilder`` for datasets
   with ``get_pair``.
 
@@ -18,7 +18,8 @@ tensors), which draw nothing from the ``Generator``, so the homography,
 jitter, noise, crop windows, flow and mask come out exactly as the JAX
 package's for the same seed; the warped pixels differ from
 ``cv2.warpPerspective``'s only by cv2's 1/32-px rounding of the sample
-position. ``ImageFolderDataset`` reads files with cv2, imported lazily.
+position. ``ImageFolderDataset`` reads files through ``utils/image_io.py``
+(OpenCV or PIL).
 """
 
 from __future__ import annotations
@@ -39,6 +40,7 @@ from sfd2_torch.training.transforms import (
     pixel_noise,
     sample_homography,
 )
+from sfd2_torch.utils.image_io import read_rgb
 
 _RGB_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 _RGB_STD = np.array([0.229, 0.224, 0.225], np.float32)
@@ -94,10 +96,7 @@ class ImageFolderDataset:
         return len(self.paths)
 
     def get_image(self, i: int) -> np.ndarray:
-        import cv2
-
-        bgr = cv2.imread(str(self.paths[i]))
-        return cv2.cvtColor(bgr, cv2.COLOR_BGR2RGB).astype(np.float32) / 255.0
+        return read_rgb(self.paths[i])
 
 
 class ArrayDataset:
@@ -139,6 +138,7 @@ class PairSample:
     raw1: np.ndarray  # [R, R, 3] in [0, 1] (for offline seg teachers)
     aflow: np.ndarray  # [R, R, 2] absolute flow img1→img2, NaN invalid
     mask: np.ndarray  # [R, R] bool
+    seg1: Optional[np.ndarray] = None  # [R, R] int32 labels of img1, when the dataset has them
 
 
 def _to_gray(img: np.ndarray) -> np.ndarray:
@@ -158,10 +158,12 @@ def crop_pair(
     valid_full: np.ndarray,
     crop: int,
     n_tries: int = 5,
+    labels_full: Optional[np.ndarray] = None,
 ) -> PairSample:
     """Shared crop-window search (``tools/dataloader.py:148-188``): pick
     the best valid-flow-coverage RxR window in img1, crop img2 around the
-    flow target's median, re-mask, normalise."""
+    flow target's median, re-mask, normalise. `labels_full`, img1's label
+    map, is cropped to img1's window (``seg1``)."""
     r = crop
     h, w = img1_full.shape[:2]
     h2, w2 = img2_full.shape[:2]
@@ -204,6 +206,8 @@ def crop_pair(
         raw1=img1,
         aflow=flow.astype(np.float32),
         mask=mask,
+        seg1=None if labels_full is None
+        else np.asarray(labels_full[y0: y0 + r, x0: x0 + r], np.int32),
     )
 
 
@@ -271,11 +275,13 @@ class PrecomputedPairBuilder:
     crop: int = 512
     n_crop_tries: int = 5
 
-    def build_from_pair(self, rng, img1, img2, aflow, mask) -> PairSample:
+    def build_from_pair(self, rng, img1, img2, aflow, mask, labels=None) -> PairSample:
+        """`labels`: img1's label map from a dataset that has one
+        (``seg_teacher.py::LabelDirPairs``), cropped as img1 is."""
         valid = np.asarray(mask, bool) & np.isfinite(aflow).all(-1)
         return crop_pair(
             rng, img1, img2, np.where(valid[..., None], aflow, np.nan),
-            valid, self.crop, self.n_crop_tries,
+            valid, self.crop, self.n_crop_tries, labels,
         )
 
 
@@ -299,7 +305,7 @@ class TransformedPairBuilder(PrecomputedPairBuilder):
         if not self.transforms:
             self.transforms = DEFAULT_PAIR_TRANSFORMS
 
-    def build_from_pair(self, rng, img1, img2, aflow, mask) -> PairSample:
+    def build_from_pair(self, rng, img1, img2, aflow, mask, labels=None) -> PairSample:
         h, w = img2.shape[:2]
         hmat = sample_homography(rng, w, h, self.transforms)
         img2w = warp_perspective(img2, hmat, (w, h))
@@ -319,13 +325,14 @@ class TransformedPairBuilder(PrecomputedPairBuilder):
         )
         return crop_pair(
             rng, img1, img2w, np.where(valid[..., None], flow2, np.nan),
-            valid, self.crop, self.n_crop_tries,
+            valid, self.crop, self.n_crop_tries, labels,
         )
 
 
 def collate(samples: Sequence[PairSample]) -> dict:
-    """Stack samples into batch arrays (``tools/dataloader.py:328``)."""
-    return {
+    """Stack samples into batch arrays (``tools/dataloader.py:328``), with
+    ``seg1`` when every sample has labels."""
+    batch = {
         "image1": np.stack([s.img1 for s in samples]),
         "image2": np.stack([s.img2 for s in samples]),
         "gray1": np.stack([s.gray1 for s in samples]),
@@ -334,10 +341,17 @@ def collate(samples: Sequence[PairSample]) -> dict:
         "aflow": np.stack([s.aflow for s in samples]),
         "mask": np.stack([s.mask for s in samples]),
     }
+    if all(s.seg1 is not None for s in samples):
+        batch["seg1"] = np.stack([s.seg1 for s in samples])
+    return batch
 
 
 class PairLoader:
-    """Threaded prefetching batch iterator (``threaded_loader`` parity)."""
+    """Threaded prefetching batch iterator (``threaded_loader`` parity):
+    `workers` threads build the samples of batch b+1 while the caller
+    works on batch b. Sample i of epoch e draws from its own generator,
+    seeded ``seed + e·1_000_003 + i``, so batches do not depend on the
+    threads' timing."""
 
     def __init__(
         self,
@@ -381,8 +395,19 @@ class PairLoader:
             return self.builder.build(r, self.dataset.get_image(int(idx)))
 
         with ThreadPoolExecutor(self.workers) as pool:
-            for b in range(n_batches):
-                idxs = order[b * self.batch_size : (b + 1) * self.batch_size]
-                seeds = [self.seed + epoch * 1_000_003 + int(i) for i in idxs]
-                samples = list(pool.map(make, zip(idxs, seeds)))
-                yield collate(samples)
+            def submit(b):
+                idxs = order[b * self.batch_size: (b + 1) * self.batch_size]
+                return [pool.submit(make, (i, self.seed + epoch * 1_000_003 + int(i)))
+                        for i in idxs]
+
+            # Depth-1 prefetch: batch b+1 is queued before batch b is waited
+            # for, so it builds while the caller runs step b.
+            pending = submit(0) if n_batches else []
+            try:
+                for b in range(n_batches):
+                    current = pending
+                    pending = submit(b + 1) if b + 1 < n_batches else []
+                    yield collate([f.result() for f in current])
+            finally:  # a caller that stops early leaves nothing to build
+                for f in pending:
+                    f.cancel()

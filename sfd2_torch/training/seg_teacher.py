@@ -7,8 +7,8 @@ loop and shifts the labels by +1). Here the whole ``raw1`` batch
 the UPerNet forward, the bilinear upsample of the logits and the argmax,
 then one fetch. At the shipped R=512 the crop equals the segmentor's slide
 window, so whole-image inference is mmseg's slide result at that size.
-``LabelDirTeacher`` reads label maps written ahead of time (cv2, imported
-lazily).
+``LabelDirTeacher`` reads label maps written ahead of time
+(``cli/segment_images.py``) through ``utils/image_io.py``.
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ import torch
 from sfd2_torch.models.upernet import (ADE20K_MEAN, ADE20K_STD, ConvNeXtUPerNet,
                                        load_mmseg_state_dict, seeded_segmentor)
 from sfd2_torch.utils.device import resolve_device
+from sfd2_torch.utils.image_io import read_image
 
 
 class SegTeacher:
@@ -64,28 +65,54 @@ class SegTeacher:
 
 
 class LabelDirTeacher:
-    """Label maps written ahead of time (``cli/segment_images.py`` of the
-    JAX package), looked up by the image's relative path under
-    `label_dir`, then by the bare stem; a missing map gives zeros
-    (unlabeled, masked by the seg losses)."""
+    """Label maps written ahead of time (``cli/segment_images.py``), looked
+    up by the image's relative path under `label_dir`, then by the bare
+    stem; a missing map gives zeros (unlabeled, masked by the seg losses).
+    A map of another size is resized by OpenCV's INTER_NEAREST rule
+    (source pixel ⌊x · src/dst⌋)."""
 
     def __init__(self, label_dir):
         self.label_dir = Path(label_dir)
 
     def label_image(self, name: str, hw: tuple[int, int]) -> np.ndarray:
-        import cv2
-
         p = self.label_dir / Path(name).with_suffix(".png")
         if not p.exists():  # flat layout
             p = self.label_dir / (Path(name).stem + ".png")
         if not p.exists():
             return np.zeros(hw, np.int32)
-        lab = cv2.imread(str(p), cv2.IMREAD_UNCHANGED)
-        if lab is None:
+        try:
+            lab = read_image(p, unchanged=True)
+        except FileNotFoundError:  # undecodable
             return np.zeros(hw, np.int32)
         if lab.shape[:2] != hw:
-            lab = cv2.resize(lab, (hw[1], hw[0]), interpolation=cv2.INTER_NEAREST)
+            ys = np.minimum((np.arange(hw[0]) * (lab.shape[0] / hw[0])).astype(np.int64),
+                            lab.shape[0] - 1)
+            xs = np.minimum((np.arange(hw[1]) * (lab.shape[1] / hw[1])).astype(np.int64),
+                            lab.shape[1] - 1)
+            lab = lab[ys[:, None], xs[None, :]]
         return lab.astype(np.int32)
+
+
+class LabelDirPairs:
+    """A get_pair dataset whose pairs carry img1's label map from a
+    `LabelDirTeacher`: ``names[i]`` is pair i's img1 path relative to the
+    label folder. A ``PrecomputedPairBuilder`` crops the map with img1,
+    so the loader's batches hold ``seg1`` and the trainer runs the seg
+    losses without an online teacher."""
+
+    def __init__(self, dataset, teacher: LabelDirTeacher, names):
+        self.dataset = dataset
+        self.teacher = teacher
+        self.names = list(names)
+        if len(self.names) != len(dataset):
+            raise ValueError(f"{len(self.names)} names for {len(dataset)} pairs")
+
+    def __len__(self):
+        return len(self.dataset)
+
+    def get_pair(self, idx: int):
+        img1, img2, aflow, mask = self.dataset.get_pair(idx)
+        return img1, img2, aflow, mask, self.teacher.label_image(self.names[idx], img1.shape[:2])
 
 
 class SegTeacherLoader:

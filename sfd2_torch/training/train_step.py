@@ -19,6 +19,14 @@ step counts and BatchNorm's running statistics as they were (BatchNorm
 moves them during the forward, so they are put back). On CUDA the
 optimiser is ``capturable`` (its step counts live on the device), and the
 guard costs no host synchronisation.
+
+Data-parallel (``group``, one process per device,
+``parallel/distributed.py``): each rank runs the student and SuperPoint on
+its slice of the batch, with BatchNorm synchronised over the group
+(``convert_sync_batchnorm``); the outputs and the batch are gathered, so
+every rank evaluates the loss of the global batch, sampler positions
+included; the gradients are summed over the ranks and every rank takes
+the same guarded Adam step.
 """
 
 from __future__ import annotations
@@ -28,6 +36,7 @@ import dataclasses
 from typing import List, NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from sfd2_torch.models.sfd2 import ResSegNetV2
 from sfd2_torch.models.superpoint import SuperPoint
@@ -151,15 +160,37 @@ def guarded_state(state: TrainState) -> List[torch.Tensor]:
     return out + list(state.model.buffers())
 
 
+def _gather_global(out, gt_score, gt_semi, batch: TrainBatch, group):
+    """Each rank's [2b, …] outputs (image 1 then image 2) and [b, …] batch
+    → the global batch's, laid out as one process would hold it."""
+    from sfd2_torch.parallel.distributed import all_gather_cat
+
+    def pairs(t):  # [2b, …] → [2B, …]: every rank's image-1 half first
+        b = t.shape[0] // 2
+        return torch.cat([all_gather_cat(t[:b], group), all_gather_cat(t[b:], group)])
+
+    out = out._replace(**{f: pairs(getattr(out, f)) for f in
+                          ("score", "descriptors", "semi", "stability_logits")
+                          if getattr(out, f) is not None},
+                       features=tuple(pairs(f) for f in out.features))
+    batch = batch._replace(seg1=all_gather_cat(batch.seg1, group),
+                           aflow=all_gather_cat(batch.aflow, group),
+                           teacher_feats=tuple(pairs(f) for f in batch.teacher_feats))
+    return out, pairs(gt_score), pairs(gt_semi), batch
+
+
 def make_train_step(model: ResSegNetV2, superpoint: SuperPoint,
-                    cfg: TrainConfig = TrainConfig(), timer=None):
+                    cfg: TrainConfig = TrainConfig(), timer=None, group=None):
     """Build `train_step(state, batch, gen, positions=None) → (state,
     metrics)`: `state.model` is `model`; `gen` (a ``torch.Generator`` on the
     batch's device) draws the sampler's positions unless `positions` gives
     them; `metrics` are 0-dim tensors on the device. `timer`, when given,
     is called as ``timer(name)`` → context manager around the stages
     ``forward`` (student, teacher, loss), ``backward`` and ``optimizer``
-    (the guard and Adam)."""
+    (the guard and Adam). `group`: a process group to train data-parallel
+    over (the module docstring); `model`'s BatchNorms must then be
+    ``SyncBatchNorm2d`` over it, every rank passes its slice of the batch
+    and a generator seeded alike, and the metrics are the global batch's."""
     stage = timer or (lambda name: contextlib.nullcontext())
     superpoint.eval().requires_grad_(False)
     loss_cfg = cfg.loss
@@ -172,6 +203,8 @@ def make_train_step(model: ResSegNetV2, superpoint: SuperPoint,
         with torch.no_grad():
             spp = superpoint(torch.cat([batch.gray1, batch.gray2], 0))
         gt_score, gt_semi = spp["scores"], spp["semi_norm"]
+        if group is not None:
+            out, gt_score, gt_semi, batch = _gather_global(out, gt_score, gt_semi, batch, group)
         weight = torch.where(gt_score >= cfg.score_th, cfg.det_weight, 1.0)
 
         seg2, mask2 = warp_seg_forward(batch.seg1, batch.aflow)
@@ -194,11 +227,18 @@ def make_train_step(model: ResSegNetV2, superpoint: SuperPoint,
             opt.zero_grad(set_to_none=False)
             metrics = loss_fn(batch, gen, positions)
         with stage("backward"):
-            metrics["loss"].backward()
+            if group is None:
+                metrics["loss"].backward()
+            else:  # each rank backpropagates its share of the one global loss
+                (metrics["loss"] / dist.get_world_size(group)).backward()
         with stage("optimizer"):
             for p in model.parameters():
                 if p.grad is None:  # unused by this loss (ConvSta without seg_det):
                     p.grad = torch.zeros_like(p)  # Adam still decays it, as optax does
+            if group is not None:
+                from sfd2_torch.parallel.distributed import all_reduce_grads
+
+                all_reduce_grads(model.parameters(), group)
             grads = [p.grad for p in model.parameters()]
             bad = torch.zeros(1, device=grads[0].device)
             # One fused pass over every gradient (the AMP scaler's check; the

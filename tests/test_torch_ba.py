@@ -105,3 +105,35 @@ def test_small_block_inverses_match_jax(rng):
     m3 = spd[:, :3, :3]
     np.testing.assert_allclose(tba._inv3_lanes(torch.from_numpy(m3)).numpy(),
                                np.asarray(jba._inv3_lanes(jnp.asarray(m3))), rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("n_seg,n_rows,layout", [
+    (6, 720, "uniform"),  # the test problem's cameras
+    (120, 720, "uniform"),  # its points
+    (60, 65377, "skewed"),  # map BA's cameras: degrees into the thousands, three levels
+    (5, 0, "uniform"),  # no observations
+    (9, 40, "gaps"),  # segments without rows
+])
+def test_segment_plan_equals_a_float64_index_add(n_seg, n_rows, layout):
+    """BA's per-camera and per-point sums (``SegmentPlan``: a fixed order,
+    no atomics) within 1e-6 of the largest float64 ``index_add_`` sum."""
+    rng = np.random.default_rng(n_seg + n_rows)
+    if layout == "skewed":
+        seg = np.minimum(rng.geometric(0.05, n_rows) - 1, n_seg - 1)
+    elif layout == "gaps":
+        seg = rng.choice(np.arange(0, n_seg, 3), n_rows)
+    else:
+        seg = rng.integers(0, n_seg, n_rows)
+    seg = torch.from_numpy(seg).to(torch.int32)
+    plan = tba.SegmentPlan(seg, n_seg)
+    for shape in ((6, 6), (3,)):
+        vals = torch.from_numpy(rng.normal(size=(n_rows, *shape)).astype(np.float32))
+        got = plan(vals)
+        ref = torch.zeros((n_seg, *shape), dtype=torch.float64).index_add_(
+            0, seg.long(), vals.double())
+        assert got.shape == ref.shape and got.dtype == torch.float32
+        scale = max(float(ref.abs().max()), 1.0)
+        assert float((got.double() - ref).abs().max()) <= 1e-6 * scale
+        assert torch.equal(plan(vals), got)  # one order, one answer
+    if layout == "skewed":
+        assert len(plan.levels) == 3

@@ -19,8 +19,8 @@ K5 and K6 to ≥ 99.9 % identical indices and values within 1e-5, with exact
 ties resolved by their contract (lowest index, multiset second value).
 K3 is also held inside a CUDA graph, and bundle adjustment, which replays
 its LM iteration from one, to the same iteration stepped eagerly on the
-card within 1e-4 (``index_add_``'s float atomics sum in another order on
-every run). The localization programs (PnP-RANSAC, the refinement, LM)
+card within 1e-4; two runs of ``bundle_adjust`` give the same bits (its
+sums run in one fixed order, ``sfm/ba.py::SegmentPlan``). The localization programs (PnP-RANSAC, the refinement, LM)
 replayed from their CUDA graphs must equal the same programs run eagerly
 on the card, be captured once per key, and give the sequential results
 when four threads replay them.
@@ -321,7 +321,8 @@ def _ba_problem(device, rng, n_cams=6, n_pts=120, noise=0.2):
 def test_bundle_adjust_graph_matches_eager_iteration_on_card(cuda_device, lm_iters, cg_iters):
     """On the card ``bundle_adjust`` runs one LM iteration eagerly and
     replays the rest from a CUDA graph: within 1e-4 of the same iteration
-    function stepped eagerly, with K3's launches counted alike."""
+    function stepped eagerly, with K3's launches counted alike; a second
+    run gives the same bits."""
     from sfd2_torch.sfm import ba
 
     problem = _ba_problem(cuda_device, np.random.default_rng(0))
@@ -347,6 +348,9 @@ def test_bundle_adjust_graph_matches_eager_iteration_on_card(cuda_device, lm_ite
     assert (got.qvecs * sign - ref.qvecs).abs().max().item() <= 1e-4
     assert (got.tvecs - ref.tvecs).abs().max().item() <= 1e-4
     assert (got.points - ref.points).abs().max().item() <= 1e-4
+    again = ba.bundle_adjust(problem, lm_iters=lm_iters, cg_iters=cg_iters)
+    for name, a, b in zip(got._fields, got, again):
+        assert torch.equal(a, b), name
 
 
 @pytest.mark.cuda

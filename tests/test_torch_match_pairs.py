@@ -169,9 +169,22 @@ def test_match_pairs_resumes_and_skips_reversed(stores):
 
 
 def test_match_pairs_rejects_a_mesh(stores):
+    """Anything but a ``parallel.mesh.Mesh`` is refused; over a mesh of
+    three CPU entries (batches of 4 padded to 6) the store is the plain
+    one."""
+    from sfd2_torch.parallel import make_mesh
+
     _, port, pairs = stores
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh"):
         match_pairs(port, pairs, MatchStore(), mesh=object(), device="cpu")
+    cfg = MatchConfig(max_keypoints=512, batch_size=4)
+    plain, sharded = MatchStore(), MatchStore()
+    match_pairs(port, pairs, plain, cfg, device="cpu")
+    assert match_pairs(port, pairs, sharded, cfg, mesh=make_mesh(devices=["cpu"] * 3)) \
+        == len(pairs)
+    for n0, n1 in pairs:
+        for a, b in zip(plain.read(n0, n1), sharded.read(n0, n1)):
+            np.testing.assert_array_equal(a, b)
 
 
 def test_match_store_reads_reversed_pairs_like_jax(tmp_path):

@@ -5,8 +5,9 @@ Both CLIs run one epoch of two iterations over a temporary image folder
 with the online teacher (``--segmentor_random``; the teacher cut to a
 one-block-per-stage ConvNeXt UPerNet in both, for compile time): both log finite losses, every
 term of the shipped configuration, and write the same files. The port
-refuses ``--data_sources`` and ``--flow_pair_list`` (not ported yet) and
-asks for CUDA by default. ``extract_features --weights last.ckpt`` gives
+refuses an unknown ``--data_sources`` letter and a run without a source,
+and asks for CUDA by default (``tests/test_torch_datasets_aachen.py``
+trains from ``--data_sources`` and ``--flow_pair_list``). ``extract_features --weights last.ckpt`` gives
 exactly what ``Extractor`` gives on the checkpoint's model entry.
 """
 
@@ -107,11 +108,12 @@ def test_trained_checkpoint_extracts_like_the_extractor(runs, tmp_path):
 
 
 def test_cli_refuses_what_is_not_ported(tmp_path, capsys):
-    base = ["--image_dirs", str(tmp_path), "--device", "cpu"]
-    for flag, value in (("--data_sources", "WA"), ("--flow_pair_list", "pairs.txt")):
-        with pytest.raises(SystemExit):
-            t_cli.main(base + [flag, value])
-        assert "10b" in capsys.readouterr().err
+    base = ["--save_dir", str(tmp_path / "runs"), "--device", "cpu"]
+    with pytest.raises(ValueError, match="unknown data-source code 'X'"):
+        t_cli.main(base + ["--data_sources", "X"])
+    with pytest.raises(SystemExit):
+        t_cli.main(base)
+    assert "--data_sources, --flow_pair_list or --image_dirs" in capsys.readouterr().err
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             t_cli.main(["--image_dirs", str(tmp_path)])

@@ -129,3 +129,60 @@ def test_pair_loader_matches_jax():
                 np.testing.assert_array_equal(a[k], b[k], err_msg=k)
             np.testing.assert_array_equal(a["aflow"], b["aflow"])
             np.testing.assert_allclose(a["image2"], b["image2"], rtol=0, atol=WARP_TOL / 0.225)
+
+
+class _Recorder:
+    """``ArrayDataset`` that records which images were asked for."""
+
+    def __init__(self, images):
+        import threading
+
+        self.images = images
+        self.asked = set()
+        self.cond = threading.Condition()
+
+    def __len__(self):
+        return len(self.images)
+
+    def get_image(self, i):
+        with self.cond:
+            self.asked.add(int(i))
+            self.cond.notify_all()
+        return self.images[i]
+
+    def wait_for(self, idxs, timeout=30.0):
+        with self.cond:
+            return self.cond.wait_for(lambda: set(idxs) <= self.asked, timeout)
+
+
+def test_pair_loader_prefetches_the_next_batch():
+    """While the caller holds batch b, batch b+1's samples are built, and
+    the batches are those of the JAX loader (same seeds, same order)."""
+    rng = np.random.default_rng(4)
+    images = [texture(rng, 60, 72) for _ in range(6)]
+    ds = _Recorder(images)
+    loader = t_data.PairLoader(ds, t_data.SyntheticPairBuilder(crop=40), batch_size=2, seed=7,
+                               workers=2)
+    order = np.random.default_rng(7 + 0 * 7919).permutation(6)
+    it = loader.epoch(0)
+    first = next(it)
+    assert ds.wait_for(order[2:4]), "batch 1 was not built while batch 0 was held"
+    assert not ds.asked & set(order[4:].tolist())  # one batch ahead, not two
+    batches = [first] + list(it)
+    ref = list(j_data.PairLoader(t_data.ArrayDataset(images), j_data.SyntheticPairBuilder(crop=40),
+                                 batch_size=2, seed=7, workers=2).epoch(0))
+    assert len(batches) == len(ref) == 3
+    for a, b in zip(batches, ref):
+        for k in ("image1", "gray1", "raw1", "mask", "aflow"):
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+        np.testing.assert_allclose(a["image2"], b["image2"], rtol=0, atol=WARP_TOL / 0.225)
+
+
+def test_pair_loader_stopped_early_builds_nothing_more():
+    images = [texture(np.random.default_rng(5), 60, 72) for _ in range(8)]
+    ds = _Recorder(images)
+    it = t_data.PairLoader(ds, t_data.SyntheticPairBuilder(crop=40), batch_size=2, seed=1,
+                           workers=1).epoch(3)
+    next(it)
+    it.close()  # the caller stops after one batch: the prefetch is cancelled or finished
+    assert len(ds.asked) <= 4
