@@ -78,7 +78,13 @@ CUDA graph, ``graph_ms``), then drives the main paths:
   [64,4096,128] and [16,4096,128], K4 at [16,4096,128]) bit-identical to
   the unsharded kernels, ``localize`` with a mesh bit-identical to the
   ``localize`` phase, ``Extractor`` over the mesh (K1), and one
-  data-parallel train step at world size 1 over ``nccl``.
+  data-parallel train step at world size 1 over ``nccl``;
+- ResBlock's grouped 3×3 conv (``models/layers.py::GroupedConvAsDense``)
+  in its two forms, cuDNN's groups=32 conv and the JAX package's coarse
+  block-diagonal conv: compared on the card in f32 at [4,256,128,128],
+  stride 1 and 2, and timed at the train step's and extraction's shapes
+  (``grouped_conv``); ``train`` and ``extract`` also run and trace their
+  step or batch in both forms, in turns.
 Every kernel's launch count and launch-shape record is set to 0 just
 before each path and read just after. A shape a main path launched that
 the kernel phases did not compare is compared afterwards, so every launch
@@ -128,6 +134,7 @@ from sfd2_torch.localization.localizer import (LocalizerRun, load_gt_poses, loca
                                                write_results)
 from sfd2_torch import native
 from sfd2_torch.models.baselines import CapsResUNet
+from sfd2_torch.models.layers import GroupedConvAsDense
 from sfd2_torch.models.retrieval import pca_whiten
 from sfd2_torch.models.sfd2 import ResSegNetV2
 from sfd2_torch.ops import cuda_build
@@ -829,7 +836,7 @@ def phase_match_large(results):
     just before it and read just after; then its checks, a traced rerun
     (which must hold one K5/K6 main kernel per pair: each similarity is
     computed once), and the kernel, its plain version, the library
-    yardstick and K2/K4 timed on pair (0, 1)."""
+    yardstick and K2/K4 and their plain versions timed on pair (0, 1)."""
     for n, c in LARGE:
         require(tiled_route(n, c) and not tiled_route(n - 128, c),
                 f"match_large: {n} is not the first tiled bank size at C={c}")
@@ -845,9 +852,11 @@ def phase_match_large(results):
         cols = torch.randperm(n, generator=gen, device=dev)[:SAMPLES]
         key = (1, n, n, c, False)
         d0, d1 = desc[0][None], desc[1][None]
-        for mode, name, same_pair in (
-                ("NNM", "nn_argmax", lambda: mutual_nn_match_cuda(d0, d1)),
-                ("NNR", "nn_top2", lambda: mutual_nn_ratio_match_cuda(d0, d1, RATIO))):
+        for mode, name, same_pair, same_pair_plain in (
+                ("NNM", "nn_argmax", lambda: mutual_nn_match_cuda(d0, d1),
+                 lambda: mutual_nn_match(d0, d1)),
+                ("NNR", "nn_top2", lambda: mutual_nn_ratio_match_cuda(d0, d1, RATIO),
+                 lambda: mutual_nn_ratio_match(d0, d1, RATIO))):
             wrapper, plain, _, out_bytes = NN_KERNELS[name]
             cfg = MatchConfig(matcher=mode, max_keypoints=n, batch_size=1)
             matches = MatchStore()
@@ -885,6 +894,10 @@ def phase_match_large(results):
                        **matcher_bounds(flops, nbytes, nbytes - 2 * n * 2 * c),
                        same_pair_k2_k4_ms=cuda_ms(same_pair, warmup=1, iters=5))
             del b16
+            torch.cuda.empty_cache()
+            # K2's or K4's plain version on the whole pair (a [N, N] f32
+            # similarity: 19 GB at 68,992 rows, twice that at K4's peak).
+            row["same_pair_k2_k4_plain_ms"] = cuda_ms(same_pair_plain, warmup=1, iters=3)
             torch.cuda.empty_cache()
             results[name][key] = row
             traced = device_profile(lambda: match_pairs(store, pairs, MatchStore(), cfg,
@@ -1248,10 +1261,14 @@ def train_loader(device, teacher_model, timer, n_images, hw, crop, batch_size, i
     return SegTeacherLoader(loader, teacher)
 
 
-def run_train(device, root, sampler=None, teacher_model=None, profile=False, **shape) -> dict:
+def run_train(device, root, sampler=None, teacher_model=None, profile=False, forms=False,
+              **shape) -> dict:
     """The `train` phase on `device`: 2 epochs (timed stage by stage, every
     step logged), a resume and a third epoch (untimed), one injected NaN
-    batch, and (`profile`) one traced step. `shape` overrides TRAIN."""
+    batch, (`profile`) one traced step, and (`forms`) under the key
+    "forms" a call that runs the step in each form of ResBlock's grouped
+    conv (`train_forms`), left to the caller so that it runs outside the
+    main path's launch counts. `shape` overrides TRAIN."""
     shape = {**TRAIN, **shape}
     sampler = sampler or NghSampler2DS()
     teacher_model = teacher_model or seeded_segmentor(seed=SEED)
@@ -1329,18 +1346,186 @@ def run_train(device, root, sampler=None, teacher_model=None, profile=False, **s
             "train: a NaN batch moved the state")
     if profile:
         out["profile"] = device_profile(
-            lambda: step_fn(state, good, resumed.step_generator(99, 1)))
+            lambda: step_fn(state, good, resumed.step_generator(99, 1)),
+            sum_kernels=("wgrad", "dgrad", "grouped"))
+    if forms:
+        out["forms"] = functools.partial(train_forms, resumed, good, device, profile=profile)
     return out
 
 
 def phase_train(results, root) -> str:
     reset_launches()
-    out = run_train("cuda", root, profile=True)
-    results["main_path"].append(read_launches())
+    out = run_train("cuda", root, profile=True, forms=True)
+    counts = read_launches()
+    results["main_path"].append(counts)
     traced = out.pop("profile")
-    emit("train", **out, launches={k: sum(v.values()) for k, v in read_launches().items()})
-    emit("train_profile", **traced)
+    out["conv2_forms"], forms_traced = out.pop("forms")()
+    emit("train", **out, launches={k: sum(v.values()) for k, v in counts.items()})
+    emit("train_profile", **traced, conv2_forms=forms_traced)
     return out["run_dir"]
+
+
+# ResBlock's grouped 3×3 conv in its two forms (models/layers.py):
+# cuDNN's groups=32 conv and the coarse block-diagonal conv of the JAX
+# package. `forward` is the one the port runs; `train` and `extract` time
+# both, in turns.
+FORMS = ("grouped", "coarse")
+CONV_GROUPS = 32
+CONV_CHECK = (4, 256, 128, 128)  # compared in f32 at stride 1 and 2
+CONV_TRAIN = (8, 256, 128, 128)  # the train step's ResBlocks: 8 crops of 512²
+CONV_EXTRACT = (4, 256, 256, 256)  # extract r1024's ResBlocks: 4 images of 1024², bf16
+
+
+# The train step also runs cuDNN's groups=32 conv with its weight gradient
+# on the channels-last activations as they come (the port's earlier path).
+TRAIN_FORMS = FORMS + ("grouped_in_layout",)
+
+
+def conv2_form(form: str):
+    """Context: ResBlock's grouped conv in `form`."""
+    stack = contextlib.ExitStack()
+    if form == "coarse":
+        stack.enter_context(patched(GroupedConvAsDense, "forward", GroupedConvAsDense.coarse))
+    if form == "grouped_in_layout":
+        stack.enter_context(patched(GroupedConvAsDense, "forward", torch.nn.Conv2d.forward))
+    return stack
+
+
+def form_order(rounds: int, forms=FORMS) -> list:
+    """grouped, coarse, then coarse, grouped, …: each form in turn."""
+    return [f for r in range(rounds) for f in (forms if r % 2 == 0 else forms[::-1])]
+
+
+def conv_flops(shape, stride: int, groups: int) -> float:
+    """Multiply-adds × 2 of a 3×3 conv over C channels in `groups` groups."""
+    b, c, h, w = shape
+    return 2.0 * b * -(-h // stride) * -(-w // stride) * c * (c // groups) * 9
+
+
+def conv_forms_case(shape, stride: int, dtype, grads: bool, channels_last: bool = False,
+                    device="cuda") -> dict:
+    """One GroupedConvAsDense on the card, seeded, its input NCHW or (as the
+    model's trunk gets it) channels-last: both forms' outputs (and with
+    `grads` the weight and input gradients of a seeded upstream gradient)
+    compared, and each form's ms in turns (the forward as the caller runs
+    it: under no_grad, or with `grads` building the autograd graph; and
+    with `grads` forward + backward). With `grads` and `channels_last`,
+    `grouped_in_layout` times cuDNN's groups=32 conv on the channels-last
+    input as it comes (the port's earlier training path)."""
+    gen = torch.Generator().manual_seed(SEED + stride)
+    conv = GroupedConvAsDense(shape[1], CONV_GROUPS, stride)
+    with torch.no_grad():
+        conv.weight.copy_(torch.randn(conv.weight.shape, generator=gen)
+                          * conv.weight[0].numel() ** -0.5)
+    conv = conv.to(device, dtype)
+    layout = torch.channels_last if channels_last else torch.contiguous_format
+    x = torch.randn(shape, generator=gen).to(device, dtype).contiguous(memory_format=layout)
+    run = {"grouped": conv, "coarse": conv.coarse}
+    if grads and channels_last:
+        run["grouped_in_layout"] = functools.partial(torch.nn.Conv2d.forward, conv)
+    with torch.no_grad():
+        outs = {form: fn(x) for form, fn in run.items()}
+    up = torch.randn(outs["grouped"].shape, generator=gen).to(device, dtype)
+    up = up.contiguous(memory_format=layout)
+    ref = outs["grouped"].float()
+    out = dict(shape=list(shape), stride=stride, dtype=str(dtype).split(".")[-1],
+               channels_last=channels_last, coarse_groups=conv.coarse_groups,
+               out_rel_err=float((outs["coarse"].float() - ref).abs().max() / ref.abs().max()))
+    xg = x.clone().requires_grad_(grads)
+    if grads:
+        wg, xgrad = {}, {}
+        for form in FORMS:
+            conv.weight.grad, xg.grad = None, None
+            run[form](xg).backward(up)
+            wg[form], xgrad[form] = conv.weight.grad.float(), xg.grad.float()
+        for name, g in (("wgrad", wg), ("dgrad", xgrad)):
+            out[f"{name}_err_of_max"] = float((g["coarse"] - g["grouped"]).abs().max()
+                                              / g["grouped"].abs().max())
+    flops = {f: conv_flops(shape, stride, conv.coarse_groups if f == "coarse" else CONV_GROUPS)
+             for f in run}
+    fwd, fwd_bwd = {f: [] for f in run}, {f: [] for f in run}
+    for form in form_order(2, tuple(run)):
+        fn = run[form]
+        with torch.set_grad_enabled(grads):
+            fwd[form].append(cuda_ms(lambda: fn(xg)))
+        if grads:
+            fwd_bwd[form].append(cuda_ms(lambda: fn(xg).backward(up)))
+    out["forms"] = {f: dict(gflop_fwd=flops[f] / 1e9, fwd_ms=fwd[f],
+                            fwd_tflops=flops[f] / 1e9 / float(np.median(fwd[f])),
+                            **(dict(fwd_bwd_ms=fwd_bwd[f]) if grads else {}))
+                    for f in run}
+    return out
+
+
+def phase_grouped_conv(results):
+    """ResBlock's grouped conv: the coarse form against cuDNN's groups=32
+    conv on the card in f32 (outputs within 1e-5 relative, weight gradients
+    within 1e-4 of their largest magnitude), and both forms timed at the
+    train step's and extraction's shapes, channels-last as the trunk's
+    activations are."""
+    checks = [conv_forms_case(CONV_CHECK, stride, torch.float32, grads=True)
+              for stride in (1, 2)]
+    for c in checks:
+        require(c["out_rel_err"] <= 1e-5 and c["wgrad_err_of_max"] <= 1e-4
+                and c["dgrad_err_of_max"] <= 1e-4,
+                f"grouped_conv: the coarse form differs from the grouped conv {c}")
+    train = conv_forms_case(CONV_TRAIN, 1, torch.float32, grads=True, channels_last=True)
+    extract = conv_forms_case(CONV_EXTRACT, 1, torch.bfloat16, grads=False, channels_last=True)
+    require(extract["out_rel_err"] <= 1e-2,
+            f"grouped_conv: bf16 coarse form differs {extract['out_rel_err']}")
+    emit("grouped_conv", checks=checks, train_shape=train, extract_shape=extract)
+
+
+def train_forms(trainer, batch, device, steps: int = 4, rounds: int = 2,
+                profile: bool = False) -> tuple:
+    """The train step (`trainer`'s state and loss, one device batch) in
+    each of TRAIN_FORMS, in turns: per round one warm-up step and `steps`
+    timed ones; the median ms of the step (its forward, backward and
+    optimizer stages) and of each stage, and (`profile`) one traced step
+    per form with the conv kernels' device ms."""
+    ms = {f: collections.defaultdict(list) for f in TRAIN_FORMS}
+    traced = {}
+    for form in form_order(rounds, TRAIN_FORMS):
+        timer = SyncTimer(device)
+        step = make_train_step(trainer.state.model, trainer.superpoint, trainer.cfg.train,
+                               timer=timer)
+        with conv2_form(form):
+            for i in range(steps + 1):
+                trainer.state, metrics = step(trainer.state, batch, trainer.step_generator(98, i))
+                require(bool(torch.isfinite(metrics["loss"])), f"train: {form} form's loss")
+            if profile and form not in traced:
+                plain = make_train_step(trainer.state.model, trainer.superpoint,
+                                        trainer.cfg.train)
+                traced[form] = device_profile(
+                    lambda: plain(trainer.state, batch, trainer.step_generator(98, 99)),
+                    sum_kernels=("wgrad", "dgrad", "grouped"))
+        for k in ("forward", "backward", "optimizer"):
+            ms[form][k] += timer.ms[k][1:]
+    summary = {}
+    for f in TRAIN_FORMS:
+        per_step = [sum(v) for v in zip(*(ms[f][k] for k in ("forward", "backward", "optimizer")))]
+        summary[f] = dict(ms_per_step=float(np.median(per_step)), ms_per_step_runs=per_step,
+                          **{f"{k}_ms": float(np.median(v)) for k, v in ms[f].items()})
+    return summary, traced
+
+
+def extract_forms(ex, images, rounds: int = 2, iters: int = 3) -> tuple:
+    """`ex.extract_batch(images)` in each form of ResBlock's grouped conv,
+    in turns: ms/img of `iters` batches after one warm-up batch per round,
+    and one traced batch per form."""
+    times, traced = {f: [] for f in FORMS}, {}
+    for form in form_order(rounds):
+        with conv2_form(form):
+            ex.extract_batch(images)
+            for _ in range(iters):
+                t0 = time.perf_counter()
+                ex.extract_batch(images)
+                times[form].append((time.perf_counter() - t0) * 1e3 / len(images))
+            if form not in traced:
+                p = device_profile(lambda: ex.extract_batch(images), sum_kernels=("grouped",))
+                traced[form] = {k: p[k] for k in ("wall_ms", "device_busy_ms", "device_idle_share",
+                                                  "top_kernels", "kernel_ms_containing")}
+    return {f: dict(ms_per_img=float(np.median(v)), runs=v) for f, v in times.items()}, traced
 
 
 CONVERGE_SAMPLER = dict(ngh=3, subq=-4, pos_d=1, neg_d=2, border=3, subd_neg=-4)
@@ -1991,12 +2176,15 @@ def phase_extract(results, state):
         require(f.descriptors.shape == (len(f.keypoints), 128), "extract: descriptor shape")
     require(min(n_kp) > 0, "extract: an image produced no keypoints")
     require(fused_stem_cuda.launches > 0, "extract: the stem kernel was not launched")
+    stem_launches = fused_stem_cuda.launches
+    stem_shapes = [[*k, v] for k, v in fused_stem_cuda.shapes.items()]
+    forms, forms_traced = extract_forms(ex, images)
     emit("extract", images=[4, 1024, 1024, 3], keypoints_per_image=n_kp,
-         ms_per_img=float(np.median(times)), ms_per_img_runs=times,
-         stem_launches=fused_stem_cuda.launches,
-         stem_shapes=[[*k, v] for k, v in fused_stem_cuda.shapes.items()],
+         ms_per_img=float(np.median(times)), ms_per_img_runs=times, conv2_forms=forms,
+         stem_launches=stem_launches, stem_shapes=stem_shapes,
          cpu_check=dict(keypoints=len(kc), agree=frac, desc_max_abs_err=float(derr)))
-    emit("extract_profile", **device_profile(lambda: ex.extract_batch(images)))
+    emit("extract_profile", **device_profile(lambda: ex.extract_batch(images)),
+         conv2_forms=forms_traced)
 
 
 def label_maps_for(images, seed: int):
@@ -2442,13 +2630,15 @@ def phase_inloc(results, store, scene):
                 f"inloc: query {i} off by {q_err} deg, {t_err} m")
 
 
-def device_profile(fn) -> dict:
+def device_profile(fn, sum_kernels: tuple = ()) -> dict:
     """One traced run of fn (torch.profiler, after the timed runs): wall
     time, device busy time and idle share, kernel launches, and the kernels
     and host-side torch ops that take the most time. `device_kernels`
     counts the kernels the card ran, `host_launch_calls` the host's launch
     calls (kernel launches and `cudaGraphLaunch`, `graph_launches` of
-    them): a replayed graph runs its kernels on one host call."""
+    them): a replayed graph runs its kernels on one host call. For each
+    name part in `sum_kernels`, `kernel_ms_containing` sums the device ms
+    and launches of the kernels whose names hold it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2475,6 +2665,10 @@ def device_profile(fn) -> dict:
                 host_launch_calls=count(launch_keys + ("cudaGraphLaunch",)),
                 graph_launches=count(("cudaGraphLaunch",)),
                 top_kernels=[[k, round(ms, 3), n] for k, ms, n in dev[:8]],
+                **({"kernel_ms_containing": {
+                    part: [round(sum(ms for k, ms, _ in dev if part in k), 3),
+                           sum(n for k, _, n in dev if part in k)] for part in sum_kernels}}
+                   if sum_kernels else {}),
                 gemm_in_top_kernels=[k for k, _, _ in dev[:8] if "gemm" in k.lower()],
                 top_torch_ops_self_cpu=[[k, round(ms, 3), n] for k, ms, n in host[:8]])
 
@@ -2960,6 +3154,7 @@ def main():
     phase_kernel_match_ratio(results)
     phase_kernel_nn(results, "nn_argmax")
     phase_kernel_nn(results, "nn_top2")
+    phase_grouped_conv(results)
     # The main paths: extract (r1024, then multi-scale labelled r1600),
     # localize (sequential, pipelined, batched), serve, the localizer front
     # end, InLoc, map building, reconstruction and large-bank matching, each

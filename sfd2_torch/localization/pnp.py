@@ -3,10 +3,10 @@
 Port of ``sfd2_tpu/localization/pnp.py``: normalised DLT on ≥6
 correspondences (SVD, cheirality-corrected) for least-squares fits, the
 direct minimal solver over a leading hypothesis axis for RANSAC
-(``pnp_dlt_fast_lanes``), and masked Levenberg–Marquardt refinement over
-an axis-angle + translation update. The DLT null vector may differ in sign
-from the JAX package's, which the cheirality flip makes irrelevant to the
-pose.
+(``pnp_dlt_fast_lanes``; ``pnp_dlt_fast`` for one sample), and masked
+Levenberg–Marquardt refinement over an axis-angle + translation update.
+The DLT null vector may differ in sign from the JAX package's, which the
+cheirality flip makes irrelevant to the pose.
 
 Every solver takes an optional leading query axis (Q), the port's form of
 the JAX engine's ``vmap`` over queries (``sfd2_tpu/localization/engine.py:
@@ -296,6 +296,15 @@ def pnp_dlt_fast_lanes(points3d: torch.Tensor, points2d_norm: torch.Tensor):
     rot, scale = _polar_rotation_lanes(p[:, :, :3])
     t = p[:, :, 3] / torch.clamp(scale, min=1e-12)[:, None]
     return rotmat_to_qvec(rot), t
+
+
+def pnp_dlt_fast(points3d: torch.Tensor, points2d_norm: torch.Tensor):
+    """One sample, [N, 3] + [N, 2] (RANSAC's minimal N = 6) → (qvec [4],
+    tvec [3]): the single-sample contract of the JAX package's
+    ``pnp_dlt_fast``, on ``pnp_dlt_fast_lanes``'s solver (hypothesis
+    generation only; final fits go through ``pnp_dlt``)."""
+    q, t = pnp_dlt_fast_lanes(points3d[None], points2d_norm[None])
+    return q[0], t[0]
 
 
 def lm_linearize(delta, rot0, tvec, points3d, points2d, cam_params, weights,

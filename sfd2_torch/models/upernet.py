@@ -11,10 +11,11 @@ The modules carry mmseg's names (``backbone.*``, ``decode_head.{
 psp_modules.N.1, bottleneck, lateral_convs.N, fpn_convs.N,
 fpn_bottleneck}.{conv,bn}``, ``decode_head.conv_seg``,
 ``auxiliary_head.{convs.0,conv_seg}``), so an mmseg checkpoint loads by
-name (``load_mmseg_state_dict``). The teacher is frozen: eval mode,
-float32 unless bf16 is asked for. ``Segmentor`` keeps the reference's
-``SegNet.evaluate`` contract with slide inference (all crops in one
-batched call) or whole-image inference.
+name (``load_mmseg_state_dict``; ``convert_upernet`` returns the
+converted state_dict, the JAX package's conversion entry). The teacher is
+frozen: eval mode, float32 unless bf16 is asked for. ``Segmentor`` keeps
+the reference's ``SegNet.evaluate`` contract with slide inference (all
+crops in one batched call) or whole-image inference.
 """
 
 from __future__ import annotations
@@ -38,6 +39,14 @@ ADE20K_STD = np.array([58.395, 57.12, 57.375], np.float32)
 
 def _up(x, size):
     return F.interpolate(x, size=tuple(size), mode="bilinear", align_corners=False)
+
+
+def adaptive_avg_pool(x: torch.Tensor, out: int) -> torch.Tensor:
+    """torch's ``AdaptiveAvgPool2d((out, out))`` on NHWC [B, H, W, C] →
+    [B, out, out, C]: bin i spans rows ⌊i·H/out⌋ … ⌈(i+1)·H/out⌉, as the
+    JAX package's ``adaptive_avg_pool``. The PSP modules run the same
+    pooling on NCHW (``nn.AdaptiveAvgPool2d``)."""
+    return F.adaptive_avg_pool2d(x.permute(0, 3, 1, 2), out).permute(0, 2, 3, 1)
 
 
 class ConvModule(nn.Module):
@@ -116,19 +125,37 @@ class ConvNeXtUPerNet(nn.Module):
         return logits
 
 
-def load_mmseg_state_dict(model: ConvNeXtUPerNet, state: Mapping[str, Any]) -> ConvNeXtUPerNet:
-    """An mmseg ``upernet_convnext_*`` state_dict (a ``state_dict`` entry
-    or bare, ``module.`` prefixes stripped) → `model`, by name. The
-    auxiliary head may be missing (mmseg drops it from some exports);
-    any other missing key raises."""
+def _mmseg_entries(state: Mapping[str, Any], keys) -> Dict[str, torch.Tensor]:
+    """The entries of an mmseg state_dict (a ``state_dict`` entry or bare,
+    ``module.`` prefixes stripped, float32) that `keys` names. The
+    auxiliary head may be missing (mmseg drops it from some exports); any
+    other missing key raises."""
     if "state_dict" in state and isinstance(state["state_dict"], Mapping):
         state = state["state_dict"]
-    missing, _ = model.load_state_dict(float_state_dict(state), strict=False)
-    missing = [k for k in missing if not k.startswith("auxiliary_head.")
+    sd = float_state_dict(state)
+    missing = [k for k in keys if k not in sd and not k.startswith("auxiliary_head.")
                and not k.endswith("num_batches_tracked")]
     if missing:
         raise KeyError(f"segmentor checkpoint lacks {missing[:8]}")
+    return {k: sd[k] for k in keys if k in sd}
+
+
+def load_mmseg_state_dict(model: ConvNeXtUPerNet, state: Mapping[str, Any]) -> ConvNeXtUPerNet:
+    """An mmseg ``upernet_convnext_*`` state_dict → `model`, by name
+    (``_mmseg_entries``)."""
+    model.load_state_dict(_mmseg_entries(state, model.state_dict().keys()), strict=False)
     return model
+
+
+def convert_upernet(state: Mapping[str, Any], arch: str = "base") -> Dict[str, torch.Tensor]:
+    """An mmseg ``upernet_convnext_*`` state_dict → the state_dict of
+    ``ConvNeXtUPerNet(arch)``: the JAX package's ``convert_upernet`` entry,
+    which returns Flax variables. The port's modules carry mmseg's names,
+    so the conversion selects and casts (``_mmseg_entries``); the auxiliary
+    head where the checkpoint has one."""
+    with torch.device("meta"):  # the key names only: no weights are made
+        keys = ConvNeXtUPerNet(arch).state_dict().keys()
+    return _mmseg_entries(state, keys)
 
 
 def seeded_segmentor(arch: str = "base", seed: int = 0, **kwargs) -> ConvNeXtUPerNet:

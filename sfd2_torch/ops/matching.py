@@ -69,6 +69,11 @@ def mutual_nn_match(desc0, desc1, valid0=None, valid1=None):
     return matches0, scores0
 
 
+# The JAX package's name for NNM over a leading pair axis (a vmap there);
+# every function here takes a batch of pairs as it is.
+mutual_nn_match_batch = mutual_nn_match
+
+
 def _dist(v):
     """L2 distance of unit descriptors from their similarity."""
     return torch.sqrt(torch.clamp(2.0 - 2.0 * v, min=0.0))

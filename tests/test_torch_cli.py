@@ -25,11 +25,13 @@ from sfd2_torch.cli import triangulation as t_tri
 from sfd2_torch.geometry.np_pose import camera_center
 from sfd2_torch.io.colmap_model import Image, read_model, write_model
 from sfd2_torch.io.feature_store import FeatureStore, MatchStore, names_to_pair
+from sfd2_torch.io import pairs as t_io_pairs
 from sfd2_torch.io.pairs import read_pairs
 from sfd2_torch.utils.synth import build_corridor_scene
 from sfd2_tpu.cli import match_features as j_match
 from sfd2_tpu.cli import pairs_from as j_pairs
 from sfd2_tpu.cli import triangulation as j_tri
+from sfd2_tpu.io import pairs as j_io_pairs
 from test_torch_map_build import _umeyama
 
 torch.set_num_threads(2)
@@ -159,3 +161,12 @@ def test_reconstruction_recovers_the_scene(cli_scene, matched):
         ref = mi.images[mi.name_to_image_id[im.name]]
         c_al = s * (rot @ camera_center(im.qvec, im.tvec)) + tr
         assert np.linalg.norm(c_al - camera_center(ref.qvec, ref.tvec)) < 0.1, im.name
+
+
+@pytest.mark.parametrize("a,b", [("db/1.jpg", "query/2.jpg"), ("a/b/c.png", "a/b/c.png"),
+                                 ("x y.jpg", "z/w.jpg")])
+def test_io_pairs_names_to_pair_matches_jax(a, b):
+    """``io/pairs.py::names_to_pair`` (re-exported from ``io/feature_store``)
+    gives the JAX package's hloc key, the one a match file is read by."""
+    assert t_io_pairs.names_to_pair is names_to_pair
+    assert t_io_pairs.names_to_pair(a, b) == j_io_pairs.names_to_pair(a, b)

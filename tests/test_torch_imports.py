@@ -2,6 +2,7 @@
 ``chip_smoke.py``, loads nothing of JAX, Flax, optax or the JAX package, builds
 no kernel, and ``chip_smoke.py`` refuses to run without a card."""
 
+import ast
 import json
 import os
 import pkgutil
@@ -105,3 +106,31 @@ def test_chip_smoke_refuses_without_cuda():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def _top_level_names(path: Path, with_imports: bool) -> set:
+    names = set()
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, ast.Assign):
+            names.update(t.id for t in node.targets if isinstance(t, ast.Name))
+        elif with_imports and isinstance(node, (ast.Import, ast.ImportFrom)):
+            names.update((a.asname or a.name).split(".")[0] for a in node.names)
+    return {n for n in names if not n.startswith("_")}
+
+
+def test_every_public_name_of_the_jax_package_has_a_counterpart():
+    """Each public function, class and constant that a module of the JAX
+    package defines is defined (or re-exported) by the port's module of the
+    same path; the Pallas modules are replaced by ``csrc/*.cu``."""
+    missing = {}
+    for ref in sorted((ROOT / "sfd2_tpu").rglob("*.py")):
+        if ref.name.startswith("pallas_"):
+            continue
+        port = ROOT / "sfd2_torch" / ref.relative_to(ROOT / "sfd2_tpu")
+        assert port.exists(), port
+        gap = _top_level_names(ref, False) - _top_level_names(port, True)
+        if gap:
+            missing[str(ref.relative_to(ROOT))] = sorted(gap)
+    assert missing == {}

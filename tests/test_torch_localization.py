@@ -271,3 +271,19 @@ def test_entry_points_refuse_missing_cuda(scenes):
     _, tscene, store = scenes
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         LocalizationEngine(tscene.map_index, store, LocalizerConfig(**QUICK))
+
+
+def test_pnp_dlt_fast_matches_jax_in_float64():
+    pts, xy, q, t, rng = _scene(9, noise=0.0)
+    xn = _norm(xy).astype(np.float64)
+    pts = pts.astype(np.float64)
+    with jax.enable_x64(True):
+        for _ in range(8):
+            idx = rng.choice(len(pts), 6, replace=False)
+            q_t, t_t = tpnp.pnp_dlt_fast(*_tt(pts[idx], xn[idx]))
+            q_j, t_j = jpnp.pnp_dlt_fast(*_jj(pts[idx], xn[idx]))
+            assert q_t.dtype == torch.float64 and q_t.shape == (4,) and t_t.shape == (3,)
+            np.testing.assert_allclose(q_t.numpy(), np.asarray(q_j), rtol=0, atol=1e-8)
+            np.testing.assert_allclose(t_t.numpy(), np.asarray(t_j), rtol=0, atol=1e-8)
+            # Noise-free points: the minimal sample recovers the pose.
+            _close_pose(q_t.numpy(), t_t.numpy(), q, t, rot_deg=1e-3, t_m=1e-4)

@@ -18,6 +18,7 @@ import torch
 from sfd2_torch.ops.matching import (
     batch_matcher,
     mutual_nn_match,
+    mutual_nn_match_batch,
     mutual_nn_match_with_labels,
     mutual_nn_ratio_match,
     one_way_match,
@@ -67,6 +68,16 @@ def test_mutual_nn_match_matches_jax_xla(rng, b, n1, n2):
     assert (m_t.numpy()[~v0] == -1).all()
     hit = m_t.numpy() >= 0
     assert v1[np.nonzero(hit)[0], m_t.numpy()[hit]].all()  # never an invalid column
+
+
+@pytest.mark.parametrize("b,n1,n2", [(4, 96, 64), (2, 50, 130)])
+def test_mutual_nn_match_batch_matches_jax(rng, b, n1, n2):
+    d0, d1, v0, v1 = _pair(rng, b, n1, n2)
+    m_t, s_t = mutual_nn_match_batch(*_t(d0, d1, v0, v1))
+    m_j, s_j = jm.mutual_nn_match_batch(*_j(d0, d1, v0, v1))
+    np.testing.assert_array_equal(m_t.numpy(), np.asarray(m_j))
+    np.testing.assert_allclose(s_t.numpy(), np.asarray(s_j), atol=1e-5)
+    assert m_t.shape == (b, n1) and (m_t >= 0).sum() > 0
 
 
 @pytest.mark.parametrize("b,n1,n2", [(1, 128, 128), (2, 128, 256)])

@@ -175,3 +175,36 @@ def test_mmcls_convnext_checkpoint_matches_jax_converter():
     with torch.no_grad():
         for f, r in zip(port(torch.from_numpy(x)), ref):
             _close(f.numpy(), r)
+
+
+def test_convert_upernet_matches_jax_converter(port_model):
+    """Both packages' ``convert_upernet`` read the same mmseg checkpoint to
+    the same weights: the JAX variables carried back by ``upernet_from_flax``
+    equal the port's converted state_dict, which loads into the model."""
+    sd = {f"module.{k}": v.numpy() for k, v in port_model.state_dict().items()}
+    got = t_up.convert_upernet({"state_dict": sd}, arch="tiny")
+    ref = t_up.upernet_from_flax(j_up.convert_upernet(sd, arch="tiny"), arch="tiny")
+    assert set(got) == set(port_model.state_dict())
+    for k, v in ref.items():
+        if not k.endswith("num_batches_tracked"):
+            assert got[k].dtype == torch.float32, k
+            np.testing.assert_array_equal(got[k].numpy(), v.numpy(), err_msg=k)
+    model = t_up.ConvNeXtUPerNet(**KW)
+    model.load_state_dict(got)
+    # Without the auxiliary head (as some mmseg exports) the rest converts.
+    bare = {k: v for k, v in sd.items() if ".auxiliary_head." not in k}
+    assert not any(k.startswith("auxiliary_head.")
+                   for k in t_up.convert_upernet(bare, arch="tiny"))
+    del bare["module.decode_head.bottleneck.conv.weight"]
+    with pytest.raises(KeyError, match="bottleneck"):
+        t_up.convert_upernet(bare, arch="tiny")
+
+
+@pytest.mark.parametrize("h,w,out", [(7, 9, 3), (2, 2, 6), (32, 32, 1), (10, 6, 6),
+                                     (16, 16, 2)])
+def test_adaptive_avg_pool_matches_jax(h, w, out):
+    x = np.random.default_rng(h * w + out).normal(size=(2, h, w, 5)).astype(np.float32)
+    got = t_up.adaptive_avg_pool(torch.from_numpy(x), out)
+    ref = np.asarray(j_up.adaptive_avg_pool(x, out))
+    assert got.shape == ref.shape == (2, out, out, 5)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=1e-6)
