@@ -43,6 +43,15 @@ CUDA graph, ``graph_ms``), then drives the main paths:
   stepped eagerly on the card (``ba_eager_s``): costs, poses and points
   within 1e-4; and run a second time, graph and eager alike, without
   deterministic algorithms: the same bits (BA sums in one fixed order);
+- the hloc workflow through the CLIs (``main(argv)``) on files, with h5py
+  blocked (``cli_workflow``): the localize scene in a feature file
+  (``io/h5file.py``), ``pairs_from`` → ``match_features`` NNM (K2) and
+  NNR (K4) → ``triangulation --export_database`` → ``reconstruction``
+  (12 images, BA on K3) → ``localizer`` against the scene's model and the
+  triangulated one (K2); ``extract_features`` (K1) on 8 1024×768 JPEGs
+  and its resume; ``serve`` in a subprocess; each stage equal to the same
+  function on dict-backed stores bit for bit; then the store's own times
+  and a matches file of Aachen's covis-20 count, written and indexed;
 - ``match_pairs`` on the large-bank route: 3 images × 68,992 keypoints ×
   C=128 and 3 × 19,584 × C=512 (D2-Net's width; each the first bank size
   the JAX package sends to its tiled kernels at that width), pairs (0,1),
@@ -106,6 +115,9 @@ import contextlib
 import dataclasses
 import functools
 import json
+import signal
+import socket
+import sqlite3
 import subprocess
 import sys
 import tempfile
@@ -119,6 +131,13 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from sfd2_torch.cli import extract_features as extract_cli
+from sfd2_torch.cli import localizer as localizer_cli
+from sfd2_torch.cli import match_features as match_cli
+from sfd2_torch.cli import pairs_from as pairs_cli
+from sfd2_torch.cli import reconstruction as recon_cli
+from sfd2_torch.cli import serve as serve_cli
+from sfd2_torch.cli import triangulation as tri_cli
 from sfd2_torch.cli.segment_images import segment_folder
 from sfd2_torch.geometry.cameras import Camera, canonicalize_params
 from sfd2_torch.geometry.np_pose import camera_center, pose_error
@@ -126,7 +145,8 @@ from sfd2_torch.geometry.pose import pose_error as pose_error_tensors
 from sfd2_torch.geometry.pose import recall_at_thresholds
 from sfd2_torch.io.colmap_model import Image, read_model, write_model
 from sfd2_torch.io.feature_store import FeatureStore, ImageFeatures, MatchStore
-from sfd2_torch.io.pairs import parse_image_lists_with_intrinsics, parse_retrieval
+from sfd2_torch.io.pairs import (parse_image_lists_with_intrinsics, parse_retrieval, read_pairs,
+                                 write_pairs)
 from sfd2_torch.localization import graphs
 from sfd2_torch.localization.engine import LocalizationEngine, LocalizerConfig
 from sfd2_torch.localization.inloc import localize_rgbd
@@ -2268,6 +2288,8 @@ def phase_extract_r1600_ms(results, state):
 
 
 LOCALIZE_CONFIG = dict(max_keypoints=4096, pnp_pad_floor=4096)
+LOCALIZE_SCENE = dict(n_images=60, n_queries=8, n_points=14000, kp_per_image=4096,
+                      kp_per_query=4096, desc_dim=128, retrieval_k=50, seed=7)
 
 
 def pose_recall(results, queries) -> tuple:
@@ -2294,9 +2316,7 @@ def phase_localize(results):
     read on their own."""
     store = FeatureStore()
     t0 = time.perf_counter()
-    scene = build_corridor_scene(store, n_images=60, n_queries=8, n_points=14000,
-                                 kp_per_image=4096, kp_per_query=4096, desc_dim=128,
-                                 retrieval_k=50, seed=7)
+    scene = build_corridor_scene(store, **LOCALIZE_SCENE)
     build_s = time.perf_counter() - t0
     eng = LocalizationEngine(scene.map_index, store, LocalizerConfig(**LOCALIZE_CONFIG),
                              device="cuda")
@@ -3101,6 +3121,405 @@ def phase_reconstruct(results, store, scene):
     check_ba_graph(rec, "reconstruct")
 
 
+# --- the hloc workflow through the CLIs, on files -------------------------
+
+CLI_IMAGES = (8, 768, 1024)  # extract_features: JPEGs, height, width
+CLI_SEED = 3  # extract_features --seed: the seeded ResSegNetV2
+AACHEN_IMAGES, AACHEN_COVIS = 6697, 20  # Aachen v1.1 DB images, covis-20 pairs
+SERVE_QUERIES = 4
+
+
+def same_arrays(a, b) -> bool:
+    if a is None or b is None:
+        return a is None and b is None
+    a, b = np.asarray(a), np.asarray(b)
+    return a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes()
+
+
+def same_features(fa: FeatureStore, fb: FeatureStore) -> bool:
+    """Equal names and every field of every image bit for bit."""
+    names = fa.keys()
+    return sorted(names) == sorted(fb.keys()) and all(
+        all(same_arrays(x, y) for x, y in zip(fa.read(n), fb.read(n))) for n in names)
+
+
+def same_matches(ma: MatchStore, mb: MatchStore) -> bool:
+    """Equal pair groups (the file's root members, the dict's keys), each
+    read bit for bit."""
+    keys = sorted(ma._f.keys() if ma._f is not None else ma._groups)
+    other = sorted(mb._f.keys() if mb._f is not None else mb._groups)
+    return keys == other and all(
+        all(same_arrays(x, y) for x, y in zip(ma._read_group(k), mb._read_group(k)))
+        for k in keys)
+
+
+MODEL_FILES = ("cameras.bin", "images.bin", "points3D.bin")
+
+
+def same_model_files(a: Path, b: Path) -> bool:
+    """Two COLMAP models written by ``write_model(..., ext=".bin")``, equal
+    byte for byte."""
+    return all((a / f).read_bytes() == (b / f).read_bytes() for f in MODEL_FILES)
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+SERVE_MAIN = """
+import json, runpy, sys
+sys.modules["h5py"] = None  # any import of h5py raises
+sys.argv = ["serve", *sys.argv[1:]]
+try:
+    runpy.run_module("sfd2_torch.cli.serve", run_name="__main__")
+finally:
+    from sfd2_torch.ops.cuda_match import mutual_nn_match_cuda
+    print(json.dumps({"match_launches": mutual_nn_match_cuda.launches,
+                      "h5py_loaded": sys.modules.get("h5py") is not None}), flush=True)
+"""
+
+
+def serve_from_files(tmp: Path, model: Path, features: Path, scene, seq, device) -> dict:
+    """``cli/serve.py`` in a subprocess (h5py blocked there too) on the
+    feature file: /healthz once warm, then SERVE_QUERIES queries from 2
+    client threads, each answer equal to ``engine.localize``'s; SIGINT
+    stops it."""
+    argv = ["--reference_sfm", str(model), "--features", str(features), "--port",
+            str(free_port()), "--max_keypoints", str(LOCALIZE_CONFIG["max_keypoints"]),
+            "--pnp_pad_floor", str(LOCALIZE_CONFIG["pnp_pad_floor"]), "--device", device]
+    require(serve_cli.config_from_args(serve_cli.parse_args(argv))
+            == LocalizerConfig(**LOCALIZE_CONFIG),
+            "cli_workflow: serve's flags do not give the localize phase's config")
+    url = f"http://127.0.0.1:{argv[5]}"
+    out_path, err_path = tmp / "serve.out", tmp / "serve.err"
+    t0 = time.perf_counter()
+    with open(out_path, "w") as out, open(err_path, "w") as err:
+        proc = subprocess.Popen([sys.executable, "-c", SERVE_MAIN, *argv], stdout=out,
+                                stderr=err, cwd=Path(__file__).resolve().parent)
+    try:
+        while True:
+            require(proc.poll() is None, "cli_workflow: serve exited: "
+                    + err_path.read_text()[-2000:])
+            require(time.perf_counter() - t0 < 600, "cli_workflow: serve not up in 600 s")
+            try:
+                with urllib.request.urlopen(f"{url}/healthz", timeout=5) as r:
+                    health = json.loads(r.read())
+                break
+            except OSError:
+                time.sleep(0.5)
+        up_s = time.perf_counter() - t0
+
+        def post(i):
+            qname, _, _, near = scene.queries[i]
+            body = {"query_name": qname, "db_ids": [int(j) for j in near],
+                    "camera": {"model": scene.cam_model, "width": scene.width,
+                               "height": scene.height, "params": list(scene.cam_params)}}
+            req = urllib.request.Request(f"{url}/localize", json.dumps(body).encode(),
+                                         {"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=300) as r:
+                return r.status, json.loads(r.read())
+
+        t1 = time.perf_counter()
+        with ThreadPoolExecutor(max_workers=2) as pool:
+            replies = list(pool.map(post, range(SERVE_QUERIES)))
+        wall = time.perf_counter() - t1
+    finally:
+        proc.send_signal(signal.SIGINT)
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=60)
+    report = json.loads(out_path.read_text().strip().splitlines()[-1])
+    equal = all(code == 200 and res["qvec"] == [float(v) for v in ref.qvec]
+                and res["tvec"] == [float(v) for v in ref.tvec]
+                and res["num_inliers"] == ref.num_inliers and res["source"] == ref.source
+                for (code, res), ref in zip(replies, seq))
+    require(health.get("ok") and health.get("images") == len(scene.map_index.images),
+            f"cli_workflow: serve's /healthz answered {health}")
+    require(equal, "cli_workflow: served answers differ from engine.localize's")
+    require(report["match_launches"] > 0 and not report["h5py_loaded"],
+            f"cli_workflow: serve reported {report}")
+    return dict(up_s=up_s, wall_s=wall, request_ms=[res["ms"] for _, res in replies],
+                equal_to_engine=equal, exit_code=proc.returncode, **report)
+
+
+def aachen_index(tmp: Path) -> dict:
+    """A matches file of Aachen v1.1's covis-20 count (6,697 DB images × 20
+    pair groups, all in the root group), each with a 64-entry matches0 and
+    matching_scores0: write, close, reopen and index, on the host."""
+    rng = np.random.default_rng(SEED)
+    m = rng.integers(-1, 4096, 64).astype(np.int32)
+    s = rng.random(64).astype(np.float32)
+    path = tmp / "aachen_covis20.h5"
+    t0 = time.perf_counter()
+    store = MatchStore(path, "w")
+    for i in range(AACHEN_IMAGES):
+        for j in range(1, AACHEN_COVIS + 1):
+            store.write(f"db/{i}.jpg", f"db/{(i + j) % AACHEN_IMAGES}.jpg", m, s)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    store.close()
+    close_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with MatchStore(path, "r") as store:
+        found = store.has_pair("db/6696.jpg", "db/19.jpg")  # the first lookup indexes the root
+        index_s = time.perf_counter() - t0
+        groups = len(store._f.keys())
+        got = store.read("db/5.jpg", "db/25.jpg")
+    n = AACHEN_IMAGES * AACHEN_COVIS
+    require(found and groups == n, f"cli_workflow: {groups} of {n} pair groups indexed")
+    require(same_arrays(got[0], m.astype(np.int64)), "cli_workflow: a pair read back wrong")
+    return dict(pair_groups=n, write_s=write_s, close_s=close_s, open_index_s=index_s,
+                file_mb=path.stat().st_size / 2**20)
+
+
+def phase_cli_workflow(results, store, scene, seq, device="cuda"):
+    """The hloc workflow through the port's CLIs (``main(argv)``, on cuda)
+    on files, with h5py blocked: the localize scene written into a feature
+    file; pairs_from covisibility → match_features NNM (K2) and NNR (K4) →
+    triangulation --export_database → reconstruction (12 images, NNR, BA on
+    K3) → localizer against the scene's model and the triangulated one;
+    extract_features (K1) on 8 JPEGs, and again (resume: 0 images); serve
+    in a subprocess. Every file stage equals the same function on
+    dict-backed stores bit for bit. Then the store's own times and a
+    matches file of Aachen's covis-20 count. `device="cpu"` rehearses it
+    (with smaller LOCALIZE_SCENE, LOCALIZE_CONFIG and CLI_IMAGES)."""
+    sys.modules["h5py"] = None  # from here on any import of h5py raises
+    sec, launches, checks = {}, {}, {}
+    mi, sync, kp = scene.map_index, device_sync(device), LOCALIZE_CONFIG["max_keypoints"]
+    on = ["--device", device]
+
+    def cli(stage, main, *argv):
+        reset_launches()
+        t0 = time.perf_counter()
+        out = main([str(a) for a in argv])
+        sync()
+        sec[stage] = time.perf_counter() - t0
+        counts = read_launches()
+        results["main_path"].append(counts)
+        launches[stage] = {k: sum(v.values()) for k, v in counts.items() if v}
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        feats = tmp / "feats-sfd2.h5"
+        t0 = time.perf_counter()
+        with FeatureStore(feats, "w") as fs:
+            build_corridor_scene(fs, **LOCALIZE_SCENE)
+        sec["scene_to_file"] = time.perf_counter() - t0
+        with FeatureStore(feats, "r") as fs:
+            checks["feature_file_equals_dict"] = same_features(fs, store)
+        require(checks["feature_file_equals_dict"],
+                "cli_workflow: the feature file does not read back as the dict store")
+
+        # The store alone: write (a copy), close, open and index, read_padded.
+        names = store.keys()
+        nbytes, write_s = 0, 0.0
+        copy = FeatureStore(tmp / "copy.h5", "w")
+        for n in names:
+            f = store.read(n)
+            t0 = time.perf_counter()
+            copy.write(n, f)
+            write_s += time.perf_counter() - t0
+            nbytes += sum(np.asarray(a).nbytes for a in f if a is not None)
+        t0 = time.perf_counter()
+        copy.close()
+        close_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with FeatureStore(tmp / "copy.h5", "r") as fs:
+            fs.keys()  # indexes every group
+            index_ms = (time.perf_counter() - t0) * 1e3
+            read_ms = []
+            for n in names:
+                t1 = time.perf_counter()
+                fs.read_padded(n, kp, with_labels=True)
+                read_ms.append((time.perf_counter() - t1) * 1e3)
+            checks["copy_equals_dict"] = same_features(fs, store)
+        dict_read_ms = []
+        for n in names:
+            t1 = time.perf_counter()
+            store.read_padded(n, kp, with_labels=True)
+            dict_read_ms.append((time.perf_counter() - t1) * 1e3)
+        require(checks["copy_equals_dict"], "cli_workflow: the copy does not read back")
+        store_line = dict(images=len(names), write_mb=nbytes / 2**20,
+                          write_mb_per_s=nbytes / 2**20 / write_s, close_s=close_s,
+                          open_index_ms=index_ms, read_padded_ms=float(np.median(read_ms)),
+                          dict_read_padded_ms=float(np.median(dict_read_ms)),
+                          file_mb=(tmp / "copy.h5").stat().st_size / 2**20)
+
+        # The engine's first pass (bank reads and uploads) from either store.
+        jobs = [(q, scene.qinfo, [[j] for j in near]) for q, _, _, near in scene.queries]
+        first = {}
+        with FeatureStore(feats, "r") as fs:
+            for kind, st in (("file", fs), ("dict", store)):
+                eng = LocalizationEngine(mi, st, LocalizerConfig(**LOCALIZE_CONFIG), device=device)
+                ms, res = [], []
+                for job in jobs:
+                    t0 = time.perf_counter()
+                    res.append(eng.localize(*job))
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                first[kind] = ms
+                require(same_results(res, seq), f"cli_workflow: the engine on the {kind} "
+                        "store differs from the localize phase")
+
+        # Model, empty-pose reference copy and query lists, as the localizer phase.
+        write_model(mi.cameras, mi.images, mi.points3d, tmp / "sfm_scene")
+        stripped = {iid: Image(iid, im.qvec, im.tvec, im.camera_id, im.name, np.zeros((0, 2)),
+                               np.zeros(0, np.int64)) for iid, im in mi.images.items()}
+        write_model(mi.cameras, stripped, {}, tmp / "reference")
+        cam = " ".join([scene.cam_model, str(scene.width), str(scene.height),
+                        *map(str, scene.cam_params)])
+        (tmp / "queries.txt").write_text("".join(f"{q} {cam}\n" for q, _, _, _ in scene.queries))
+        (tmp / "retrieval.txt").write_text("".join(
+            f"{q} {mi.images[j].name}\n" for q, _, _, near in scene.queries for j in near))
+        (tmp / "gt.txt").write_text("".join(
+            f"{q.split('/')[-1]} " + " ".join(map(str, [*qv, *tv])) + "\n"
+            for q, qv, tv, _ in scene.queries))
+
+        cli("pairs_from", pairs_cli.main, "covisibility", "--model", tmp / "sfm_scene",
+            "--output", tmp / "pairs-covis20.txt", "--num_matched", 20)
+        pairs = read_pairs(tmp / "pairs-covis20.txt")
+        checks["pairs_equal"] = pairs == pairs_from_covisibility(mi, num_matched=20)
+        require(checks["pairs_equal"], "cli_workflow: pairs_from differs from the function")
+
+        ref_matches = {}
+        for conf in ("NNM", "NNR"):
+            cli(f"match_features_{conf}", match_cli.main, "--features", feats, "--pairs",
+                tmp / "pairs-covis20.txt", "--export_fn", tmp / f"matches-{conf}.h5",
+                "--conf", conf, "--max_keypoints", kp, *on)
+            ref_matches[conf] = MatchStore()
+            match_pairs(store, pairs, ref_matches[conf],
+                        MatchConfig(matcher=conf, max_keypoints=kp, batch_size=16), device=device)
+            with MatchStore(tmp / f"matches-{conf}.h5", "r") as ms:
+                checks[f"matches_{conf}_equal"] = same_matches(ms, ref_matches[conf])
+            require(checks[f"matches_{conf}_equal"],
+                    f"cli_workflow: match_features {conf} differs from match_pairs")
+        require(launches["match_features_NNM"].get("mutual_nn_match", 0) > 0
+                and launches["match_features_NNR"].get("mutual_nn_ratio_match", 0) > 0,
+                f"cli_workflow: K2 / K4 not launched by match_features ({launches})")
+
+        cli("triangulation", tri_cli.main, "--sfm_dir", tmp / "sfm_tri", "--reference_sfm_model",
+            tmp / "reference", "--pairs", tmp / "pairs-covis20.txt", "--features", feats,
+            "--matches", tmp / "matches-NNM.h5", "--export_database", *on)
+        with StageTimer(sfm_pipeline, ("geometric_verification",), device) as stages:
+            ref_map = triangulate_map(tmp / "reference", store, ref_matches["NNM"], pairs, None,
+                                      TriangulationConfig(max_reproj_error=4.0,
+                                                          min_tri_angle_deg=1.5),  # the flags
+                                      device=device)
+        write_model(*ref_map[:3], tmp / "ref_tri", ext=".bin")
+        tri_model = read_model(tmp / "sfm_tri")
+        checks["triangulation_equal"] = same_model_files(tmp / "sfm_tri", tmp / "ref_tri")
+        require(checks["triangulation_equal"], "cli_workflow: triangulation differs from "
+                "triangulate_map")
+        with sqlite3.connect(tmp / "sfm_tri" / "database.db") as db:
+            db_rows = {t: db.execute(f"SELECT COUNT(*) FROM {t}").fetchone()[0]
+                       for t in ("cameras", "images", "keypoints")}
+        require(db_rows["images"] == db_rows["keypoints"] == len(mi.images),
+                f"cli_workflow: database export {db_rows}")
+        verified = {frozenset((a, b)) for a, b, _ in stages.returned["geometric_verification"]}
+        covis = (mi.incidence @ mi.incidence.T).toarray()
+        row = {n: r for r, n in enumerate(mi.names)}
+        strong = {frozenset(p) for p in pairs if covis[row[p[0]], row[p[1]]] >= 50}
+        rec, gt = point_errors(mi, tri_model[2], lambda iid: iid)
+        tri_med = float(np.median(np.linalg.norm(rec - gt, axis=1)))
+        tri_reproj = ref_map[3]["mean_reprojection_error"]
+        require(not strong - verified and tri_med < 0.05 and tri_reproj < 1.0,
+                f"cli_workflow: the triangulated map misses map_build's bars ({len(strong - verified)}"
+                f" strong pairs unverified, median point error {tri_med}, reprojection {tri_reproj})")
+
+        keep = {mi.images[i].name for i in sorted(mi.images)[:12]}
+        recon_pairs = [(a, b) for a, b in pairs if a in keep and b in keep]
+        write_pairs(tmp / "pairs-recon.txt", recon_pairs)
+        cli("reconstruction", recon_cli.main, "--sfm_dir", tmp / "sfm_recon", "--features", feats,
+            "--matches", tmp / "matches-NNR.h5", "--pairs", tmp / "pairs-recon.txt",
+            "--camera", cam, *on)
+        parts = cam.split(" ")  # the CLI's camera, parsed as it parses it
+        camera = Camera(1, parts[0], int(parts[1]), int(parts[2]), np.array(parts[3:], np.float64))
+        ref_recon = incremental_reconstruction(
+            store, ref_matches["NNR"], recon_pairs,
+            {n: camera for n in sorted({n for p in recon_pairs for n in p})},
+            ReconstructionConfig(), device=device)
+        write_model(*ref_recon[:3], tmp / "ref_recon", ext=".bin")
+        checks["reconstruction_equal"] = same_model_files(tmp / "sfm_recon", tmp / "ref_recon")
+        registered = len(read_model(tmp / "sfm_recon")[1])
+        require(checks["reconstruction_equal"],
+                "cli_workflow: reconstruction differs from incremental_reconstruction")
+        require(registered >= 10, f"cli_workflow: reconstruction registered {registered} of 12")
+        require(launches["reconstruction"].get("gather_rows", 0) > 0,
+                "cli_workflow: K3 not launched by reconstruction's BA")
+
+        queries = parse_image_lists_with_intrinsics(tmp / "queries.txt")
+        retrievals = parse_retrieval(tmp / "retrieval.txt")
+        gt_poses = load_gt_poses(tmp / "gt.txt")
+        recall = {}
+        for model in ("sfm_scene", "sfm_tri"):
+            runs = []
+
+            def recording(*args, _real=localizer_cli.run, **kwargs):
+                runs.append(args[6])  # the LocalizerRun the CLI built from its flags
+                return _real(*args, **kwargs)
+
+            out = tmp / f"poses-{model}.txt"
+            with patched(localizer_cli, "run", recording):
+                stats = cli(f"localizer_{model}", localizer_cli.main, "--dataset", "aachen_v1.1",
+                            "--reference_sfm", tmp / model, "--queries", tmp / "queries.txt",
+                            "--retrieval", tmp / "retrieval.txt", "--features", feats,
+                            "--results", out, "--gt_pose_fn", tmp / "gt.txt",
+                            "--max_keypoints", kp, *on)
+            recall[model] = stats["recall"]
+            poses, failed, _, log = localize_queries(queries, retrievals,
+                                                     MapIndex(*read_model(tmp / model)), store,
+                                                     runs[0], gt_poses, device=device)
+            write_results(poses, failed, log, tmp / f"ref-{model}.txt", "aachen_v1.1")
+            checks[f"localizer_{model}_equal"] = (
+                out.read_text() == (tmp / f"ref-{model}.txt").read_text()
+                and Path(f"{out}.failed").read_text()
+                == Path(f"{tmp / f'ref-{model}.txt'}.failed").read_text())
+            require(checks[f"localizer_{model}_equal"],
+                    f"cli_workflow: localizer on {model} differs from localize_queries")
+            require(launches[f"localizer_{model}"].get("mutual_nn_match", 0) > 0,
+                    f"cli_workflow: K2 not launched by the localizer on {model}")
+        require(recall["sfm_tri"][0] >= 0.875,
+                f"cli_workflow: recall {recall['sfm_tri'][0]} < 0.875 on the triangulated map")
+
+        n_img, h, w = CLI_IMAGES
+        for i, img in enumerate(textured_images(n_img, h, SEED + 9, width=w)):
+            write_jpeg(tmp / "images" / "db" / f"{i}.jpg", img)
+        extract_args = ["--image_dir", tmp / "images", "--export_fn", tmp / "feats-extract.h5",
+                        "--conf", "sfd2-n4096-r1024", "--seed", CLI_SEED, *on]
+        n_first = cli("extract_features", extract_cli.main, *extract_args)
+        n_again = cli("extract_features_resume", extract_cli.main, *extract_args)
+        names = extract_cli.list_images(tmp / "images", None)
+        ref_feats = FeatureStore()
+        Extractor(extract_cli.seeded_state_dict(CLI_SEED), EXTRACTION_CONFS["sfd2-n4096-r1024"],
+                  device=device).extract_to_store(tmp / "images", names, ref_feats)
+        with FeatureStore(tmp / "feats-extract.h5", "r") as fs:
+            checks["extract_equal"] = same_features(fs, ref_feats)
+            n_kp = [len(fs.read(n).keypoints) for n in names]
+        require(n_first == n_img and n_again == 0,
+                f"cli_workflow: extract_features wrote {n_first}, then {n_again} on resume")
+        require(checks["extract_equal"], "cli_workflow: extract_features differs from Extractor")
+        require(launches["extract_features"].get("fused_stem", 0) > 0,
+                "cli_workflow: K1 not launched by extract_features")
+
+        t0 = time.perf_counter()
+        served = serve_from_files(tmp, tmp / "sfm_scene", feats, scene, seq, device)
+        sec["serve"] = time.perf_counter() - t0
+        aachen = aachen_index(tmp)
+        require("h5py" in sys.modules and sys.modules["h5py"] is None,
+                "cli_workflow: h5py was loaded")
+    emit("cli_workflow", seconds=sec, launches=launches, checks=checks, store=store_line,
+         first_pass_ms=dict(file=first["file"], dict=first["dict"]),
+         first_pass_ms_median=dict(file=float(np.median(first["file"])),
+                                   dict=float(np.median(first["dict"]))),
+         recall=recall, map_points3D=len(tri_model[2]), map_median_point_error=tri_med,
+         map_mean_reprojection_error_px=tri_reproj, registered=registered,
+         extract_keypoints=n_kp, serve=served, aachen_index=aachen)
+
+
 def kernel_table(results, shapes: dict) -> list:
     """One row per kernel: launches on the main paths, and the numbers of
     the compared launch record where the main paths spent the most kernel
@@ -3157,8 +3576,9 @@ def main():
     phase_grouped_conv(results)
     # The main paths: extract (r1024, then multi-scale labelled r1600),
     # localize (sequential, pipelined, batched), serve, the localizer front
-    # end, InLoc, map building, reconstruction and large-bank matching, each
-    # with the counts set to 0 just before it and read just after.
+    # end, InLoc, map building, reconstruction, the CLIs on files and
+    # large-bank matching, each with the counts set to 0 just before it and
+    # read just after.
     phase_extract(results, state)
     phase_extract_r1600_ms(results, state)
     store, scene, seq = phase_localize(results)
@@ -3168,6 +3588,7 @@ def main():
     phase_inloc(results, store, scene)
     phase_map_build(results, store, scene)
     phase_reconstruct(results, store, scene)
+    phase_cli_workflow(results, store, scene, seq)
     phase_match_large(results)
     phase_baselines(results)
     phase_retrieval(results)

@@ -1,12 +1,14 @@
 """Feature and match stores: HDF5 file or in-memory dict, one interface.
 
 Port of ``sfd2_tpu/io/feature_store.py``. The reference layouts are kept:
-one group per image with ``keypoints`` [N, 2], ``descriptors`` **[C, N]**,
-``scores`` [N], ``image_size`` and optional ``labels``; one group per
-pair, named ``names_to_pair(n0, n1)``, with ``matches0`` and
-``matching_scores0`` (``hloc/match_features.py:113-119``). A store opened
-with a path is an HDF5 file (h5py is imported only then); with no path it
-keeps the same groups in a dict, for machines without h5py.
+one group per image with ``keypoints`` [N, 2] float32, ``descriptors``
+**[C, N]** float32 (float16 with ``as_half``), ``scores`` [N] float32,
+``image_size`` and optional ``labels`` int32; one group per pair, named
+``names_to_pair(n0, n1)``, with ``matches0`` int32 and ``matching_scores0``
+float16 (``hloc/match_features.py:113-119``). A store opened with a path is
+an HDF5 file read and written by ``io/h5file.py`` (no h5py), which h5py and
+hloc read and whose files h5py writes; with no path it keeps the same groups
+in a dict.
 """
 
 from __future__ import annotations
@@ -16,6 +18,8 @@ from pathlib import Path
 from typing import Dict, Iterable, NamedTuple
 
 import numpy as np
+
+from . import h5file
 
 
 class ImageFeatures(NamedTuple):
@@ -33,15 +37,14 @@ def names_to_pair(name0: str, name1: str) -> str:
 
 def _open_h5(path: Path, mode: str):
     """Open an HDF5 store; append/write modes recover only from a
-    truncated non-HDF5 stub left by a killed writer."""
-    import h5py
-
+    non-HDF5 stub (no signature) left by a killed writer: a valid file is
+    never deleted."""
     try:
-        return h5py.File(path, mode)
+        return h5file.File(path, mode)
     except OSError:
-        if mode in ("a", "w") and path.exists() and not h5py.is_hdf5(str(path)):
+        if mode in ("a", "w") and path.exists() and not h5file.is_hdf5(path):
             path.unlink()
-            return h5py.File(path, mode)
+            return h5file.File(path, mode)
         raise
 
 
@@ -73,12 +76,11 @@ class FeatureStore:
     def keys(self) -> Iterable[str]:
         if self._f is None:
             return list(self._groups)
-        import h5py
 
         def walk(group, prefix=""):
             for k, v in group.items():
                 full = f"{prefix}/{k}" if prefix else k
-                if isinstance(v, h5py.Group):
+                if isinstance(v, h5file.Group):
                     if "keypoints" in v:
                         yield full
                     else:

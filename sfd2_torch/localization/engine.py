@@ -154,8 +154,9 @@ class LocalizationEngine:
         self._pinned: Dict[str, tuple] = {}
         self._pinned_dev: Dict[str, tuple] = {}
         self._dev_zero_entry = None
-        # The caches, the store (h5py handles are not thread-safe) and the
-        # padding entry are the state that concurrent localize() calls share.
+        # The caches, the feature store (an ``io/h5file.py`` file indexes a
+        # group on its first lookup) and the padding entry are the state that
+        # concurrent localize() calls share.
         self._cache_lock = threading.RLock()
         self._matcher = batch_matcher(config.matcher)
         self._label_aware = config.matcher == "nnml"
@@ -455,7 +456,7 @@ class LocalizationEngine:
     def _query_feats(self, qname: str):
         """(kp [K,2] host, desc [K,C], valid [K], labels [K] or None on the
         device) of a query, read once: every match round reuses them."""
-        with self._cache_lock:  # h5py handles are not thread-safe
+        with self._cache_lock:  # the store indexes a group on its first lookup
             kpq, q_desc, _, q_valid, q_labels = self.features.read_padded(
                 qname, self.cfg.max_keypoints, with_labels=True)
         dev = self.device

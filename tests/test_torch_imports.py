@@ -1,6 +1,7 @@
 """The port stands alone: importing every ``sfd2_torch`` module, or
-``chip_smoke.py``, loads nothing of JAX, Flax, optax or the JAX package, builds
-no kernel, and ``chip_smoke.py`` refuses to run without a card."""
+``chip_smoke.py``, loads nothing of JAX, Flax, optax or the JAX package, nor
+h5py (the stores read and write HDF5 through ``io/h5file.py``), builds no
+kernel, and ``chip_smoke.py`` refuses to run without a card."""
 
 import ast
 import json
@@ -55,7 +56,7 @@ def test_port_lists_the_slice_modules():
                  "training.data", "training.ap_loss", "training.sampler",
                  "training.extra_losses", "training.losses", "training.train_step",
                  "training.trainer", "training.seg_teacher", "utils.config",
-                 "utils.tb_writer", "cli.train"):
+                 "utils.tb_writer", "cli.train", "io.h5file"):
         assert f"sfd2_torch.{name}" in mods, name
 
 
@@ -67,6 +68,17 @@ def test_imports_load_nothing_of_jax(target):
         f"for m in {mods!r}: importlib.import_module(m)\n"
         f"bad = sorted(k for k in sys.modules if k.split('.')[0] in {FORBIDDEN!r})\n"
         "print(json.dumps(bad))\n"
+    )
+    assert _run(code) == []
+
+
+@pytest.mark.parametrize("target", ["package", "chip_smoke"])
+def test_imports_load_no_h5py(target):
+    mods = _port_modules() if target == "package" else ["chip_smoke"]
+    code = (
+        "import importlib, json, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "print(json.dumps(sorted(k for k in sys.modules if k.split('.')[0] == 'h5py')))\n"
     )
     assert _run(code) == []
 
