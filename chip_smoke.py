@@ -49,9 +49,18 @@ CUDA graph, ``graph_ms``), then drives the main paths:
   NNR (K4) → ``triangulation --export_database`` → ``reconstruction``
   (12 images, BA on K3) → ``localizer`` against the scene's model and the
   triangulated one (K2); ``extract_features`` (K1) on 8 1024×768 JPEGs
-  and its resume; ``serve`` in a subprocess; each stage equal to the same
+  and its resume; ``serve`` in a subprocess, whose requests must capture
+  no graph (its warm-up covers them); each stage equal to the same
   function on dict-backed stores bit for bit; then the store's own times
   and a matches file of Aachen's covis-20 count, written and indexed;
+- the scale rehearsal (``sfd2_torch/scripts/bench_scale.py``, ``scale``)
+  at ``SCALE_DB`` DB images, by default its full 5,000, and 120 ground-truth
+  points per image at every width of the full run (4096 keypoints, C=128,
+  1024×768, 10 pairs per image, 50 queries × top-50):
+  device-born bf16 banks → pairs → K2 in bf16 and F-RANSAC → tracks →
+  triangulation → BA (K3) → ``MapIndex.from_arrays`` →
+  ``localize_throughput``; the pair count held against the pair rule
+  restated in numpy, BA's cost falling, recall ≥ 0.875;
 - ``match_pairs`` on the large-bank route: 3 images × 68,992 keypoints ×
   C=128 and 3 × 19,584 × C=512 (D2-Net's width; each the first bank size
   the JAX package sends to its tiled kernels at that width), pairs (0,1),
@@ -115,6 +124,7 @@ import contextlib
 import dataclasses
 import functools
 import json
+import os
 import signal
 import socket
 import sqlite3
@@ -140,7 +150,7 @@ from sfd2_torch.cli import serve as serve_cli
 from sfd2_torch.cli import triangulation as tri_cli
 from sfd2_torch.cli.segment_images import segment_folder
 from sfd2_torch.geometry.cameras import Camera, canonicalize_params
-from sfd2_torch.geometry.np_pose import camera_center, pose_error
+from sfd2_torch.geometry.np_pose import camera_center, pose_error, qvec_to_rotmat
 from sfd2_torch.geometry.pose import pose_error as pose_error_tensors
 from sfd2_torch.geometry.pose import recall_at_thresholds
 from sfd2_torch.io.colmap_model import Image, read_model, write_model
@@ -175,6 +185,7 @@ from sfd2_torch.pipeline.extract import EXTRACTION_CONFS, ExtractionConfig, Extr
 from sfd2_torch.pipeline.extractors import (BaselineConfig, build_model, caps_describe, dynamic_load,
                                             seeded_init_)
 from sfd2_torch.pipeline.match import MatchConfig, match_pairs
+from sfd2_torch.scripts import bench_scale
 from sfd2_torch.sfm import pipeline as sfm_pipeline
 from sfd2_torch.sfm import reconstruction as sfm_reconstruction
 from sfd2_torch.sfm.ba import BAProblem, bundle_adjust, lm_result, lm_setup
@@ -2506,6 +2517,7 @@ def phase_serve(results, store, scene, seq):
          request_ms=[res["ms"] for _, res, _ in replies], client_ms=[ms for _, _, ms in replies],
          wall_s=wall, qps=len(replies) / wall, peak_in_flight=peak[0], equal_to_engine=equal,
          graph_captures=graphs.stats["captures"] - captures,
+         bank_uploads=service.engine.bank_uploads,
          match_launches=sum(counts["mutual_nn_match"].values()))
     require(health.get("ok") and health.get("images") == len(scene.map_index.images),
             f"serve: /healthz answered {health}")
@@ -3172,20 +3184,36 @@ SERVE_MAIN = """
 import json, runpy, sys
 sys.modules["h5py"] = None  # any import of h5py raises
 sys.argv = ["serve", *sys.argv[1:]]
+from sfd2_torch.localization import graphs
+from sfd2_torch.serving.server import LocalizationService
+services, warm = [], {}
+warmup = LocalizationService.warmup
+
+def recorded(self):  # the graphs and bank uploads as the warm-up leaves them
+    seconds = warmup(self)
+    services.append(self)
+    warm.update(graphs.stats, warmup_s=seconds, bank_uploads=self.engine.bank_uploads)
+    return seconds
+
+LocalizationService.warmup = recorded
 try:
     runpy.run_module("sfd2_torch.cli.serve", run_name="__main__")
 finally:
     from sfd2_torch.ops.cuda_match import mutual_nn_match_cuda
     print(json.dumps({"match_launches": mutual_nn_match_cuda.launches,
-                      "h5py_loaded": sys.modules.get("h5py") is not None}), flush=True)
+                      "h5py_loaded": sys.modules.get("h5py") is not None,
+                      "after_warmup": warm,
+                      "at_exit": dict(graphs.stats, bank_uploads=sum(
+                          s.engine.bank_uploads for s in services))}), flush=True)
 """
 
 
 def serve_from_files(tmp: Path, model: Path, features: Path, scene, seq, device) -> dict:
     """``cli/serve.py`` in a subprocess (h5py blocked there too) on the
     feature file: /healthz once warm, then SERVE_QUERIES queries from 2
-    client threads, each answer equal to ``engine.localize``'s; SIGINT
-    stops it."""
+    client threads, each answer equal to ``engine.localize``'s, and no
+    graph captured during the requests (the process reports ``graphs.stats``
+    and its bank uploads after the warm-up and at exit); SIGINT stops it."""
     argv = ["--reference_sfm", str(model), "--features", str(features), "--port",
             str(free_port()), "--max_keypoints", str(LOCALIZE_CONFIG["max_keypoints"]),
             "--pnp_pad_floor", str(LOCALIZE_CONFIG["pnp_pad_floor"]), "--device", device]
@@ -3242,7 +3270,16 @@ def serve_from_files(tmp: Path, model: Path, features: Path, scene, seq, device)
     require(equal, "cli_workflow: served answers differ from engine.localize's")
     require(report["match_launches"] > 0 and not report["h5py_loaded"],
             f"cli_workflow: serve reported {report}")
-    return dict(up_s=up_s, wall_s=wall, request_ms=[res["ms"] for _, res in replies],
+    # The warm-up must cover the requests: a capture inside a request is
+    # the first request's wait (each graph takes ~0.5 s on the card).
+    warm, end = report["after_warmup"], report["at_exit"]
+    require(warm and end["captures"] == warm["captures"],
+            f"cli_workflow: serve's requests captured graphs: {warm} then {end}")
+    request_ms = [res["ms"] for _, res in replies]
+    return dict(up_s=up_s, wall_s=wall, request_ms=request_ms, first_request_ms=request_ms[0],
+                later_request_ms=request_ms[1:],
+                request_captures=end["captures"] - warm["captures"],
+                request_bank_uploads=end["bank_uploads"] - warm["bank_uploads"],
                 equal_to_engine=equal, exit_code=proc.returncode, **report)
 
 
@@ -3520,6 +3557,74 @@ def phase_cli_workflow(results, store, scene, seq, device="cuda"):
          extract_keypoints=n_kp, serve=served, aachen_index=aachen)
 
 
+# --- the scale rehearsal --------------------------------------------------------
+
+# DB images: the largest count whose phase keeps within ~150 s. The full
+# 5,000 took 83.2 s in a process of its own on the H100, so nothing is cut;
+# a later phase that needs the time cuts it here. The environment's SCALE_DB
+# sets another count: at 1,000 the points stay below ``ba_max_pts``, so BA
+# runs unwindowed over every observation, K3's largest shapes.
+SCALE_DB = int(os.environ.get("SCALE_DB", "5000"))
+SCALE_PTS_PER_IMAGE = 120  # ground-truth points per image: 600,000 over 5,000 in the full run
+
+
+def plain_pose_pairs(db_q: np.ndarray, db_t: np.ndarray, num_matched: int) -> np.ndarray:
+    """``pairs_from_poses``' rule restated over arrays: each image's
+    ``num_matched`` nearest camera centres among those whose optical axis
+    is within 30° of its own, as sorted row pairs, each listed once."""
+    rot = np.stack([qvec_to_rotmat(q) for q in db_q])
+    centers = -np.einsum("nji,nj->ni", rot, db_t)
+    axes = rot[:, 2]
+    d2 = np.sum((centers[:, None] - centers[None]) ** 2, axis=-1)
+    d2[np.degrees(np.arccos(np.clip(axes @ axes.T, -1.0, 1.0))) > 30.0] = np.inf
+    np.fill_diagonal(d2, np.inf)
+    near = np.argsort(d2, axis=1)[:, :num_matched]
+    rows = np.repeat(np.arange(len(d2)), near.shape[1])
+    ok = np.isfinite(d2[rows, near.ravel()])
+    pairs = np.stack([rows[ok], near.ravel()[ok]], 1)
+    return np.unique(np.sort(pairs, axis=1), axis=0)
+
+
+def phase_scale(results):
+    """The rehearsal's stages (``bench_scale.run``) at SCALE_DB images and
+    the full run's widths (``reduced``: what differs from the full run),
+    with the launch counts set to 0 just before and read just after; its K2
+    and K3 launch shapes join the main path."""
+    cfg = bench_scale.ScaleConfig(n_db=SCALE_DB, n_pts=SCALE_PTS_PER_IMAGE * SCALE_DB)
+    reset_launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        rec = bench_scale.run(cfg, "cuda", Path(tmp) / "scale.json", Path(tmp))
+    counts = read_launches()
+    results["main_path"].append(counts)
+    torch.cuda.empty_cache()
+    c = rec["counts"]
+    poses = bench_scale.make_poses(cfg, np.random.default_rng(bench_scale.POSE_SEED))
+    n_pairs_plain = len(plain_pose_pairs(poses[1], poses[2], cfg.pairs))
+    full = dataclasses.asdict(bench_scale.ScaleConfig())
+    emit("scale", reduced={k: [v, full[k]] for k, v in dataclasses.asdict(cfg).items()
+                           if v != full[k]},
+         scale=rec["scale"], stages_s=rec["stages_s"], stage_peak_mem_mb=rec["peak_mem_mb"],
+         stage_launches=rec["launches"], counts=c, n_pairs_plain=n_pairs_plain,
+         **{k: rec[k] for k in ("mapbuild_wall_s", "total_wall_s", "qps_at_scale",
+                                "query_ms_at_scale", "recall_025m_2deg", "recall_05m_5deg",
+                                "med_terr_m", "med_rerr_deg", "queries_accepted",
+                                "localize_phase_s")},
+         launches={k: dict((str(list(key)), n) for key, n in v.items())
+                   for k, v in counts.items() if v},
+         peak_mem_mb=max(rec["peak_mem_mb"].values(), default=0.0))
+    require(c["n_pairs"] == n_pairs_plain,
+            f"scale: {c['n_pairs']} pairs, the pose rule gives {n_pairs_plain}")
+    require(c["n_points_triangulated"] >= 0.5 * c["n_tracks"],
+            f"scale: {c['n_points_triangulated']} of {c['n_tracks']} tracks triangulated")
+    require(c["ba_final_cost"] < c["ba_initial_cost"],
+            f"scale: BA's cost {c['ba_initial_cost']} → {c['ba_final_cost']}")
+    require(rec["recall_025m_2deg"] >= 0.875,
+            f"scale: recall@(0.25 m, 2°) {rec['recall_025m_2deg']} < 0.875")
+    for stage, kernel in (("match_verify", "mutual_nn_match"), ("ba", "gather_rows"),
+                          ("localize", "mutual_nn_match")):
+        require(rec["launches"][stage][kernel] > 0, f"scale: {kernel} not launched in {stage}")
+
+
 def kernel_table(results, shapes: dict) -> list:
     """One row per kernel: launches on the main paths, and the numbers of
     the compared launch record where the main paths spent the most kernel
@@ -3576,9 +3681,9 @@ def main():
     phase_grouped_conv(results)
     # The main paths: extract (r1024, then multi-scale labelled r1600),
     # localize (sequential, pipelined, batched), serve, the localizer front
-    # end, InLoc, map building, reconstruction, the CLIs on files and
-    # large-bank matching, each with the counts set to 0 just before it and
-    # read just after.
+    # end, InLoc, map building, reconstruction, the CLIs on files, the
+    # scale rehearsal and large-bank matching, each with the counts set to
+    # 0 just before it and read just after.
     phase_extract(results, state)
     phase_extract_r1600_ms(results, state)
     store, scene, seq = phase_localize(results)
@@ -3589,6 +3694,7 @@ def main():
     phase_map_build(results, store, scene)
     phase_reconstruct(results, store, scene)
     phase_cli_workflow(results, store, scene, seq)
+    phase_scale(results)
     phase_match_large(results)
     phase_baselines(results)
     phase_retrieval(results)

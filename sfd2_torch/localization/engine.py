@@ -154,6 +154,8 @@ class LocalizationEngine:
         self._pinned: Dict[str, tuple] = {}
         self._pinned_dev: Dict[str, tuple] = {}
         self._dev_zero_entry = None
+        # Banks uploaded from the store to the device (cache misses).
+        self.bank_uploads = 0
         # The caches, the feature store (an ``io/h5file.py`` file indexes a
         # group on its first lookup) and the padding entry are the state that
         # concurrent localize() calls share.
@@ -212,6 +214,7 @@ class LocalizationEngine:
                 return self._db_dev_cache[name]
             _, desc, valid3d, _, labels = self._db_feats(image_id)
             entry = self._dev_entry(torch.from_numpy(desc), valid3d, labels)
+            self.bank_uploads += 1
             self._db_dev_cache[name] = entry
             if len(self._db_dev_cache) > self.cfg.db_cache_images:
                 self._db_dev_cache.popitem(last=False)
@@ -345,13 +348,15 @@ class LocalizationEngine:
         """Power-of-2 pad size with the configured floor."""
         return max(self.cfg.pnp_pad_floor, 1 << (max(n, 1) - 1).bit_length())
 
-    def _pnp_batch(self, items: Sequence[tuple], thresh: float, seeds: Sequence[int]):
+    def _pnp_batch(self, items: Sequence[tuple], thresh: float, seeds: Sequence[int],
+                   n_pad: Optional[int] = None):
         """PnP-RANSAC of items [(mkpq, mp3d, cam8)] padded to len(seeds)
         queries (padding queries all-invalid, on a benign fx = fy = 1
-        camera) and to one correspondence bucket; query i's hypotheses come
-        from a generator seeded seeds[i]. Returns the packed device result
-        [len(seeds), 9 + n_pad]."""
-        qp, n_pad, dev = len(seeds), self._pad_bucket(max(len(it[0]) for it in items)), self.device
+        camera) and to one correspondence bucket (`n_pad`, by default the
+        items' own); query i's hypotheses come from a generator seeded
+        seeds[i]. Returns the packed device result [len(seeds), 9 + n_pad]."""
+        qp, dev = len(seeds), self.device
+        n_pad = n_pad or self._pad_bucket(max(len(it[0]) for it in items))
         kp = np.zeros((qp, n_pad, 2), np.float32)
         p3 = np.zeros((qp, n_pad, 3), np.float32)
         va = np.zeros((qp, n_pad), bool)
@@ -378,12 +383,15 @@ class LocalizationEngine:
         out = self._pnp_batch([(mkpq, mp3d, cam8)], thresh, [seed]).cpu().numpy()  # one fetch
         return self._unpack_pnp(out[0], len(mkpq))
 
-    def _refine_batch(self, items: Sequence[tuple], qp: int) -> np.ndarray:
+    def _refine_batch(self, items: Sequence[tuple], qp: int,
+                      n_pad: Optional[int] = None) -> np.ndarray:
         """The iterative re-selection + LM of items [(qvec, tvec, mkpq, mp3d,
         base mask, cam8)] padded to qp queries (identity poses, no rows, a
-        benign camera) and one correspondence bucket, in one program;
-        fetched once: [qp, 8 + iters] = qvec, tvec, num, nums."""
-        n_pad, dev = self._pad_bucket(max(len(it[2]) for it in items)), self.device
+        benign camera) and one correspondence bucket (`n_pad`, by default
+        the items' own), in one program; fetched once: [qp, 8 + iters] =
+        qvec, tvec, num, nums."""
+        dev = self.device
+        n_pad = n_pad or self._pad_bucket(max(len(it[2]) for it in items))
         qv = np.zeros((qp, 4), np.float32)
         qv[:, 0] = 1.0
         tv = np.zeros((qp, 3), np.float32)
@@ -412,16 +420,29 @@ class LocalizationEngine:
                 log += f"iter {it+1}: {int(n_it)} inliers\n"
         return qvec, tvec, num, log
 
+    def warm_buckets(self) -> List[int]:
+        """The correspondence buckets a single query's PnP-RANSAC and
+        refinement take when it has at most 2 × ``max_keypoints``
+        correspondences: every power of two from ``pnp_pad_floor`` up. A
+        singleton cluster gives at most ``max_keypoints`` (one match per
+        query keypoint); a covisibility refinement, which keeps a query
+        keypoint's matches to distinct 3D points, can give more."""
+        top = self._pad_bucket(2 * self.cfg.max_keypoints)
+        return sorted({self._pad_bucket(1 << e) for e in range(top.bit_length())})
+
     def warmup_programs(self):
-        """Run PnP-RANSAC and the refinement once for one query at the
-        ``pnp_pad_floor`` bucket, on eight points seen from the identity
-        pose: on the card this captures their graphs, so the first real
-        query of at most that many correspondences replays them."""
+        """Run PnP-RANSAC and the refinement once for one query at every
+        bucket of ``warm_buckets``, on eight points seen from the identity
+        pose (padded to the bucket): on the card this captures their graphs,
+        so a ``localize`` of up to 2 × ``max_keypoints`` correspondences
+        replays them and captures nothing."""
         mp3d = np.random.default_rng(0).uniform([-1, -1, 4], [1, 1, 8], (8, 3))
         mkpq = 100.0 * mp3d[:, :2] / mp3d[:, 2:] + 50.0
         cam8 = np.array([100.0, 100.0, 50.0, 50.0, 0, 0, 0, 0])
-        q, t, inl, _, _ = self._run_pnp(mkpq, mp3d, cam8, self.cfg.ransac_thresh)
-        self._refine_batch([(q, t, mkpq, mp3d, inl, cam8)], 1)
+        for n_pad in self.warm_buckets():
+            out = self._pnp_batch([(mkpq, mp3d, cam8)], self.cfg.ransac_thresh, [0], n_pad)
+            q, t, inl, _, _ = self._unpack_pnp(out.cpu().numpy()[0], len(mkpq))
+            self._refine_batch([(q, t, mkpq, mp3d, inl, cam8)], 1, n_pad)
 
     # ------------------------------------------------------------------
     def refine_covisibility(self, qname: str, cam8: np.ndarray, q_feats,

@@ -21,7 +21,9 @@ state entering it. Every call then copies its inputs into the static
 inputs, replays the graphs in order with the eager segments between them
 (their results copied into the next graph's static state) and returns a
 copy of the packed result. A capture that fails raises: nothing runs
-eagerly on the card in its place.
+eagerly on the card in its place. Before a capture,
+``release_cache_for_capture`` returns the caching allocator's unused
+blocks to the driver when they hold more of the card than is free.
 
 The graphs are kept for the life of the process and share one memory
 pool per device. One lock serialises every capture and replay, so the
@@ -57,6 +59,18 @@ def run_eager(program: Program) -> torch.Tensor:
     return state[0]
 
 
+def release_cache_for_capture(dev) -> None:
+    """``torch.cuda.empty_cache()`` when the caching allocator's unused
+    blocks hold more of the card than the driver has free. While a capture
+    runs the allocator cannot hand them back, so a capture that needs fresh
+    memory would fail with the card's memory cached but unused; when the
+    card has room, the cache stays (emptying it costs every later
+    allocation a cudaMalloc)."""
+    free, _ = torch.cuda.mem_get_info(dev)
+    if free < torch.cuda.memory_reserved(dev) - torch.cuda.memory_allocated(dev):
+        torch.cuda.empty_cache()
+
+
 class _Captured:
     """One program's graphs over static inputs and states."""
 
@@ -69,6 +83,7 @@ class _Captured:
             state = fn(self.inputs, state)
         self.graphs = []
         captured_fns = [fn for captured, fn in program.segments if captured]
+        release_cache_for_capture(self.inputs[0].device)
         for fn, state in zip(captured_fns, entering):
             static = tuple(t.clone() for t in state)
             graph = torch.cuda.CUDAGraph()

@@ -21,9 +21,11 @@ Client errors (missing fields, a body that is not a JSON object) answer
 Up to ``max_concurrent`` requests are in flight at once: the engine is
 thread-safe (lock-guarded caches; the PnP and refinement graphs replay
 one call at a time), and one query's host work overlaps another's device
-work. ``warmup`` localizes a throwaway query and captures the PnP and
-refinement graphs of the configured ``pnp_pad_floor`` bucket, so the first
-real request replays them.
+work. ``warmup`` localizes a throwaway query shaped like a request of the
+configured retrieval size (``covisibility_frame`` singleton frames), which
+uploads those frames' banks, and captures the PnP and refinement graphs of
+every correspondence bucket a query of up to 2 × ``max_keypoints``
+correspondences takes: a request then replays graphs and captures none.
 """
 
 from __future__ import annotations
@@ -74,18 +76,39 @@ class LocalizationService:
                 "ms": round((time.perf_counter() - t0) * 1e3, 1)}
 
     def warmup(self) -> float:
-        """Localize the first DB image against its first neighbours (loads
-        the matcher, uploads banks), then ``engine.warmup_programs()``,
-        which captures the PnP and refinement graphs of the
-        ``pnp_pad_floor`` bucket on the card. Returns seconds."""
+        """Localize a throwaway query as a request of the configured
+        retrieval size would: the first DB image against
+        ``covisibility_frame`` singleton frames of the map (4 when
+        ``covisibility_frame`` sets no limit), led by the frame that shares
+        the fewest points with it (so the first cluster misses and the other
+        frames are matched in one launch, at a request's frame bucket) and
+        then its covisible frames, most shared points first; this uploads
+        their banks and runs PnP and the covisibility refinement. Then
+        ``engine.warmup_programs()`` captures the PnP and refinement graphs
+        of every bucket in ``engine.warm_buckets()`` on the card.
+
+        A request then captures no graph while its clusters give at most
+        2 × ``max_keypoints`` correspondences, and one of
+        ``covisibility_frame`` frames meets the frame bucket the warm-up
+        ran; a request of another size runs the matcher at another frame
+        bucket, which captures no graph either. The reference
+        localizes against 4 singletons; the answers of later requests are
+        the same either way. Returns seconds."""
         t0 = time.perf_counter()
         iid = int(self.map.image_ids[0])
         image = self.map.images[iid]
         cam = self.map.cameras[image.camera_id]
         qinfo = (cam.model, cam.width, cam.height, np.asarray(cam.params))
-        near = [int(i) for i in self.map.image_ids[:4]]
+        ids = [int(i) for i in self.map.image_ids]
+        n = self.engine.cfg.covisibility_frame
+        n = min(n if n > 0 else 4, len(ids))  # no frame limit: the reference's 4 singletons
+        shared = self.map.covisibility_counts(self.map.observed_point_rows(iid))
+        far = min(ids, key=lambda i: shared.get(i, 0))
+        frames = [f for f in self.map.covis_frames_obs(iid, covisibility_frame=n) if f != far]
+        seen = set(frames) | {far}
+        frames = [far] + frames + [i for i in ids if i not in seen]
         with self._gate:
-            self.engine.localize(image.name, qinfo, [[i] for i in near])
+            self.engine.localize(image.name, qinfo, [[i] for i in frames[:n]])
             self.engine.warmup_programs()
         return time.perf_counter() - t0
 

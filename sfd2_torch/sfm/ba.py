@@ -44,6 +44,7 @@ from torch.func import jacfwd, vmap
 
 from sfd2_torch.geometry.cameras import _distort
 from sfd2_torch.geometry.rotations import qvec_to_rotmat, rotmat_to_qvec
+from sfd2_torch.localization.graphs import release_cache_for_capture
 from sfd2_torch.localization.pnp import _axis_angle_to_rotmat, _inv6_spd_lanes
 from sfd2_torch.ops.cuda_gather import (count_graph_replays, gather_rows_cuda,
                                         graph_capture_record)
@@ -351,6 +352,7 @@ def _replay_in_graph(iterate, state: LMState, lm_iters: int) -> LMState:
             static = LMState(*(t.clone() for t in state))
             graph = torch.cuda.CUDAGraph()
             t0 = time.perf_counter()
+            release_cache_for_capture(dev)
             with graph_capture_record() as captured:
                 graph.capture_begin(pool=None if last is None else last.pool())
                 try:

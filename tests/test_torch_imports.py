@@ -56,7 +56,7 @@ def test_port_lists_the_slice_modules():
                  "training.data", "training.ap_loss", "training.sampler",
                  "training.extra_losses", "training.losses", "training.train_step",
                  "training.trainer", "training.seg_teacher", "utils.config",
-                 "utils.tb_writer", "cli.train", "io.h5file"):
+                 "utils.tb_writer", "cli.train", "io.h5file", "scripts.bench_scale"):
         assert f"sfd2_torch.{name}" in mods, name
 
 

@@ -673,3 +673,30 @@ def test_refine_pose_lm_runs_from_a_graph_on_card(cuda_device):
     assert (q.cpu() - q_c).abs().max().item() <= 1e-4
     assert (t.cpu() - t_c).abs().max().item() <= 1e-4
     assert (t.cpu() - torch.tensor(np.stack([t for _, t in poses]))).abs().max().item() <= 0.02
+
+
+@pytest.mark.cuda
+def test_graph_capture_when_the_allocator_cache_holds_the_card(cuda_device):
+    """A capture in a process whose caching allocator holds nearly all of
+    the card in freed blocks of the graphs' stream still finds memory.
+    The program's eager run fits in those blocks, so nothing hands them
+    back before the capture, and the capture's own pool needs fresh
+    memory, which the allocator cannot free while a capture runs:
+    ``release_cache_for_capture`` hands the cache back first."""
+    from sfd2_torch.localization import graphs
+
+    n = 3 << 27  # float32: 1.5 GiB, the size of each of the program's tensors
+
+    def fill(inputs, state):  # eager, on the graphs' stream: blocks freed on return
+        blocks = []
+        while torch.cuda.mem_get_info(inputs[0].device)[0] >= 4 * n:
+            blocks.append(torch.empty(n, device=inputs[0].device))
+        return (inputs[0] + len(blocks),)
+
+    def seg(inputs, state):
+        return (inputs[0] + torch.ones(n, device=inputs[0].device),)
+
+    zero = torch.zeros(1, device=cuda_device)
+    assert float(graphs.run(graphs.Program(("fill_cache", n), ((False, fill),), (zero,)))) > 0
+    out = graphs.run(graphs.Program(("cache_held", n), ((True, seg),), (zero,)))
+    assert out.shape == (n,) and float(out.min()) == float(out.max()) == 1.0

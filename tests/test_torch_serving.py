@@ -24,7 +24,9 @@ from sfd2_torch.cli import serve as cli_serve
 from sfd2_torch.geometry.np_pose import pose_error
 from sfd2_torch.io.colmap_model import write_model
 from sfd2_torch.io.feature_store import FeatureStore
+from sfd2_torch.localization import graphs
 from sfd2_torch.localization.engine import LocalizationEngine, LocalizerConfig
+from sfd2_torch.localization.graphs import program_key
 from sfd2_torch.serving import server as server_mod
 from sfd2_torch.serving.server import LocalizationService, make_server
 from sfd2_torch.utils.synth import build_corridor_scene
@@ -367,3 +369,72 @@ def test_cli_serve_runs_on_disk_model(tmp_path, monkeypatch):
     assert seen["health"]["images"] == 20
     code, res = seen["localize"]
     assert code == 200 and res["source"] == "accepted"
+
+
+WARM_SCENE = dict(n_images=60, n_queries=2, n_points=3000, kp_per_image=256, kp_per_query=256,
+                  retrieval_k=50, seed=7)
+WARM_CFG = dict(CFG, covisibility_frame=50, max_keypoints=256, pnp_pad_floor=64,
+                num_hypotheses=128)
+
+
+def test_warmup_covers_a_request_of_the_retrieval_size(monkeypatch):
+    """A fresh service after ``warmup()``: a request with the scene's 50
+    retrieved frames runs no program at a padded shape (PnP-RANSAC's or the
+    refinement's correspondence bucket) and no matcher launch at a frame
+    bucket that the warm-up did not already run; on the card each new
+    program key is a graph capture inside the request. The reference's
+    4-singleton warm-up leaves the request's buckets to the request."""
+    store = FeatureStore()
+    scene = build_corridor_scene(store, **WARM_SCENE)
+    service = LocalizationService(scene.map_index, store, LocalizerConfig(**WARM_CFG),
+                                  device="cpu")
+    programs, frame_buckets = set(), set()
+    run = graphs.run
+
+    def recorded(program):
+        programs.add(program_key(program))
+        return run(program)
+
+    monkeypatch.setattr(graphs, "run", recorded)
+    matcher = service.engine._matcher
+
+    def recorded_matcher(d0, *args):
+        frame_buckets.add(d0.shape[0])
+        return matcher(d0, *args)
+
+    service.engine._matcher = recorded_matcher
+    service.warmup()
+    warm_programs, warm_frames = set(programs), set(frame_buckets)
+    uploads = service.engine.bank_uploads
+    for qi in range(len(scene.queries)):
+        qname, q_gt, t_gt, near = scene.queries[qi]
+        assert len(near) == 50
+        res = service.localize(_body(scene, qi))
+        assert res["source"] == "accepted"
+    assert {k[0][0] for k in programs} == {"pnp", "refine"}
+    assert programs <= warm_programs, sorted(programs - warm_programs)
+    assert frame_buckets <= warm_frames, sorted(frame_buckets - warm_frames)
+    assert 64 in warm_frames
+    # The warm-up uploaded the banks of the frames a request near the
+    # first image retrieves; later requests upload the rest once.
+    assert uploads >= 50 and service.engine.bank_uploads <= len(scene.map_index.images)
+
+
+def test_warmup_without_a_frame_limit_localizes_against_four_frames():
+    """``covisibility_frame`` ≤ 0 sets no frame limit, so no request size
+    is known: the warm-up falls back to the reference's 4 singletons
+    instead of matching every map image in one launch."""
+    store = FeatureStore()
+    scene = build_corridor_scene(store, **WARM_SCENE)
+    service = LocalizationService(scene.map_index, store,
+                                  LocalizerConfig(**dict(WARM_CFG, covisibility_frame=0)),
+                                  device="cpu")
+    seen, localize = [], service.engine.localize
+
+    def recorded(qname, qinfo, clusters):
+        seen.append(clusters)
+        return localize(qname, qinfo, clusters)
+
+    service.engine.localize = recorded
+    service.warmup()
+    assert len(seen) == 1 and len(seen[0]) == 4 and all(len(c) == 1 for c in seen[0])
