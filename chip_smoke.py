@@ -69,11 +69,10 @@ CUDA graph, ``graph_ms``), then drives the main paths:
   matches;
 - the baseline extractors (``pipeline/extractors.py::dynamic_load(...,
   device="cuda")``, seeded full-width networks): SuperPoint, R2D2, D2-Net,
-  SGD2 and SFD2 (K1) on 8 textured 1024×768 images (images 1–3 crops of
-  one texture moved by (64, 32) px each), CAPS's network at SuperPoint's
-  keypoints (``caps_describe``; its OpenCV detector is host-only), each
-  network also on a 192×256 crop on the CPU with the same weights in
-  float32; then ``match_pairs`` over the 28 pairs: SuperPoint NNM (K2,
+  SGD2, SFD2 (K1), OpenCV SIFT and CAPS end to end (its OpenCV detector on
+  the host, its network on the card) on 8 textured 1024×768 images (images
+  1–3 crops of one texture moved by (64, 32) px each), each extractor also
+  on a 192×256 crop on the CPU with the same weights in float32; then ``match_pairs`` over the 28 pairs: SuperPoint NNM (K2,
   C=256), R2D2 NNM (K2, C=128), D2-Net NNR (K4, C=512), SuperPoint NNR
   (K4, C=256), and the planted shift recovered (SuperPoint NNM ≥ 95 %);
 - DIR retrieval: ``make_dir`` (ResNet-101 GeM, 2048-D, float32) on 16
@@ -103,6 +102,12 @@ CUDA graph, ``graph_ms``), then drives the main paths:
   stride 1 and 2, and timed at the train step's and extraction's shapes
   (``grouped_conv``); ``train`` and ``extract`` also run and trace their
   step or batch in both forms, in turns.
+- the one-line harness (``python -m sfd2_torch.scripts.bench --passes
+  2``, the port of ``bench.py``) in a subprocess, right after the kernel
+  phases: every stage timed at its card shapes (K1 at [16,1024,1024,3] and
+  [8,1600,1216,3], K2 at [50,4096,128], K3 in BA's graph), the kernels
+  held exact, the end-to-end query metrics; its launch counts join the
+  main path (``bench``).
 Every kernel's launch count and launch-shape record is set to 0 just
 before each path and read just after. A shape a main path launched that
 the kernel phases did not compare is compared afterwards, so every launch
@@ -163,7 +168,6 @@ from sfd2_torch.localization.inloc import localize_rgbd
 from sfd2_torch.localization.localizer import (LocalizerRun, load_gt_poses, localize_queries,
                                                write_results)
 from sfd2_torch import native
-from sfd2_torch.models.baselines import CapsResUNet
 from sfd2_torch.models.layers import GroupedConvAsDense
 from sfd2_torch.models.retrieval import pca_whiten
 from sfd2_torch.models.sfd2 import ResSegNetV2
@@ -182,8 +186,7 @@ from sfd2_torch.parallel import make_mesh
 from sfd2_torch.parallel.distributed import convert_sync_batchnorm, init_process_group
 from sfd2_torch.ops.stem import fused_stem_apply, repack_stem_params, unpack_stem_params
 from sfd2_torch.pipeline.extract import EXTRACTION_CONFS, ExtractionConfig, Extractor
-from sfd2_torch.pipeline.extractors import (BaselineConfig, build_model, caps_describe, dynamic_load,
-                                            seeded_init_)
+from sfd2_torch.pipeline.extractors import BaselineConfig, dynamic_load, seeded_init_
 from sfd2_torch.pipeline.match import MatchConfig, match_pairs
 from sfd2_torch.scripts import bench_scale
 from sfd2_torch.sfm import pipeline as sfm_pipeline
@@ -450,9 +453,10 @@ class StemCase:
 def phase_kernel_stem(results, state):
     case = StemCase(state)
     # (4, 1024, 1024) is the launch of the extract phase; 1216×1600 is one
-    # bucket of the Aachen r1600 configuration.
-    results["fused_stem"] = {(b, h, w): case(b, h, w) for b, h, w in ((4, 1024, 1024),
-                                                                       (1, 1216, 1600))}
+    # bucket of the Aachen r1600 configuration; the bench's extraction
+    # batches (16 at 1024², 8 at 1600×1216) are checked before it times them.
+    results["fused_stem"] = {(b, h, w): case(b, h, w) for b, h, w in (
+        (4, 1024, 1024), (1, 1216, 1600), (16, 1024, 1024), (8, 1600, 1216))}
     return case
 
 
@@ -955,7 +959,7 @@ def phase_match_large(results):
 # ``sfd2-n4096-r1024`` conf's size, with max_keypoints and conf_threshold
 # as cli/extract_features.py passes them for that conf; their features
 # matched over every pair by K2 (NNM) and K4 (NNR) at 256, 128 and 512 wide.
-BASELINE_NETS = ("superpoint", "r2d2", "d2net", "sgd2", "sfd2")
+BASELINE_NETS = ("superpoint", "r2d2", "d2net", "sgd2", "sfd2", "sift", "caps")
 BASELINE_MATCHES = (("superpoint", "NNM", "mutual_nn_match", 256),
                     ("r2d2", "NNM", "mutual_nn_match", 128),
                     ("d2net", "NNR", "mutual_nn_ratio_match", 512),
@@ -1036,9 +1040,10 @@ def reset_peak(device):
 
 def run_baselines(results, device, h: int = 768, w: int = 1024, max_keypoints: int = 4096,
                   small=(192, 256), profile: bool = False) -> dict:
-    """The baselines path on `device`: every network of BASELINE_NETS and
-    CAPS's descriptor on 8 images of h×w, then match_pairs over the 28
-    pairs for each entry of BASELINE_MATCHES. Each network is first held
+    """The baselines path on `device`: every extractor of BASELINE_NETS (SIFT
+    on the host, CAPS with its host detector) on 8 images of h×w, then
+    match_pairs over the 28 pairs for each entry of BASELINE_MATCHES. Each
+    extractor is first held
     against itself on the CPU on one small crop (same seeded weights,
     float32). Every extraction and every matching run is a main path (the
     counts set to 0 before it and read after). `profile`: one traced run of
@@ -1083,31 +1088,6 @@ def run_baselines(results, device, h: int = 768, w: int = 1024, max_keypoints: i
             launches=launches_by_shape(counts))
         phase_peak = max(phase_peak, peak_mb(dev))
 
-    # CAPS: the network on the device at SuperPoint's keypoints (its
-    # detector is OpenCV SIFT on the host).
-    caps = build_model(CapsResUNet(), device=dev, seed=SEED)
-    caps_cpu = build_model(CapsResUNet(), device="cpu", seed=SEED)
-    xy_small = dynamic_load("superpoint", cfg, device="cpu", seed=SEED)(crop).keypoints
-    d_dev, d_cpu = caps_describe(caps, crop, xy_small), caps_describe(caps_cpu, crop, xy_small)
-    del caps_cpu
-    reset_peak(dev)
-    at_sp = [(im, f.keypoints) for im, f in zip(images, feats["superpoint"])]
-    descs, times = timed_per_image(lambda a: caps_describe(caps, *a), at_sp)
-    if profile:
-        out["profiles"]["caps"] = device_profile(
-            lambda: caps_describe(caps, *at_sp[0]))
-    out["nets"]["caps"] = dict(
-        ms_per_img=float(np.median(times)), ms_per_img_runs=times, peak_mem_mb=peak_mb(dev),
-        keypoints_per_image=[len(d) for d in descs], desc_dim=int(descs[0].shape[1]),
-        finite=bool(all(np.isfinite(d).all() for d in descs)),
-        shapes_ok=all(d.shape == (len(f.keypoints), 256)
-                      for d, f in zip(descs, feats["superpoint"])),
-        cpu_check=dict(keypoints=len(xy_small),
-                       desc_max_abs_err=float(np.abs(d_dev - d_cpu).max()) if len(xy_small)
-                       else 0.0))
-    phase_peak = max(phase_peak, peak_mb(dev))
-    del caps
-
     pairs = [(names[i], names[j]) for i in range(len(names)) for j in range(i + 1, len(names))]
     for net, mode, kernel, c in BASELINE_MATCHES:
         matches = MatchStore()
@@ -1135,9 +1115,10 @@ def run_baselines(results, device, h: int = 768, w: int = 1024, max_keypoints: i
 
 def phase_baselines(results):
     """The baseline extractors on the card (``dynamic_load(..., device=
-    "cuda")``, seeded full-width networks), CAPS's ``caps_describe``, and
-    their features matched by K2 and K4; each network also on a small crop
-    on the CPU with the same weights."""
+    "cuda")``, seeded full-width networks; SIFT on the host, CAPS with its
+    OpenCV detector, so this phase fails without cv2), and their features
+    matched by K2 and K4; each extractor also on a small crop on the CPU
+    with the same weights."""
     out = run_baselines(results, "cuda", profile=True)
     profiles = out.pop("profiles")
     emit("baselines", **out)
@@ -1148,12 +1129,10 @@ def phase_baselines(results):
                 f"baselines {net}: non-finite output or an image without keypoints")
         require(rec["desc_dim"] == {"superpoint": 256, "d2net": 512, "caps": 256}.get(net, 128),
                 f"baselines {net}: descriptor width {rec['desc_dim']}")
-        if net == "caps":
-            require(rec["shapes_ok"], "baselines caps: descriptor shape")
-        else:
+        if net != "caps":  # CAPS's coarse‖fine descriptors are not unit vectors
             require(rec["max_unit_norm_err"] <= 1e-4, f"baselines {net}: descriptors not unit")
-            require(cc["keypoints"] > 0 and cc["agree"] >= 0.98,
-                    f"baselines {net}: {cc['agree']:.4f} of keypoints agree with the CPU")
+        require(cc["keypoints"] > 0 and cc["agree"] >= 0.98,
+                f"baselines {net}: {cc['agree']:.4f} of keypoints agree with the CPU")
         require(cc["desc_max_abs_err"] <= 1e-4,
                 f"baselines {net}: descriptor err {cc['desc_max_abs_err']} > 1e-4 vs the CPU")
     # Only SFD2 reaches a kernel (K1) among the networks.
@@ -3557,6 +3536,58 @@ def phase_cli_workflow(results, store, scene, seq, device="cuda"):
          extract_keypoints=n_kp, serve=served, aachen_index=aachen)
 
 
+# --- the one-line harness ------------------------------------------------------
+
+BENCH_PASSES = 2  # the harness's own default is 3; two keep the phase near 2 minutes
+BENCH_TIMEOUT_S = 600
+BENCH_TIMED = ("extract_ms", "match50_ms", "pnp_ms", "refine_ms", "ba_ms", "extract1600_ms",
+               "verify_pair_ms", "triang_pt_us")
+
+
+def phase_bench(results):
+    """``python -m sfd2_torch.scripts.bench --passes BENCH_PASSES`` in a
+    subprocess (its own allocator: the parent's cache is emptied first),
+    at the card shapes. Its line is this phase's line; its launch counts,
+    set to 0 when it starts and read at its end (the exactness check's
+    launches left out), join the main path."""
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "sfd2_torch.scripts.bench", "--passes",
+                               str(BENCH_PASSES), "--out", str(Path(tmp) / "bench.json")],
+                              cwd=Path(__file__).resolve().parent, capture_output=True,
+                              text=True, timeout=BENCH_TIMEOUT_S)
+        wall_s = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    require(len(lines) == 1, f"bench: {len(lines)} stdout lines, rc {proc.returncode}; "
+            f"stderr: {proc.stderr[-3000:]}")
+    line = json.loads(lines[0])
+    stage_peaks = line.pop("peak_mem_mb", {})
+    emit("bench", **line, returncode=proc.returncode, wall_s=wall_s,
+         stage_peak_mem_mb=stage_peaks, peak_mem_mb=max(stage_peaks.values(), default=0.0))
+    counts = {name: collections.Counter() for name in KERNELS}
+    for name, shapes in line.get("launches", {}).items():
+        counts[name].update({tuple(json.loads(key)): n for key, n in shapes.items()})
+    results["main_path"].append(counts)
+    require(proc.returncode == 0, f"bench: exit code {proc.returncode}")
+    require(not {"partial", "error", "stage_errors"} & set(line),
+            f"bench: {({k: line[k] for k in ('partial', 'error', 'stage_errors') if k in line})}")
+    missing = [k for k in BENCH_TIMED if not line.get(k, 0) > 0]
+    require(not missing, f"bench: stages not measured {missing}")
+    require(line["passes_completed"] == BENCH_PASSES and len(line["fps_per_pass"]) == BENCH_PASSES,
+            f"bench: {line['passes_completed']} passes")
+    require(line["kernels_exact"] is True, f"bench: kernels not exact {line['kernel_deltas']}")
+    require(line["matcher"] == "cuda" and line["fused_stem"] == "cuda",
+            f"bench: matcher {line['matcher']}, stem {line['fused_stem']}")
+    require(line["e2e_recall_025m_2deg"] >= 0.875 and line["e2e_recall_batched"] >= 0.875,
+            f"bench: recall {line['e2e_recall_025m_2deg']}, batched {line['e2e_recall_batched']}")
+    for key in ("mfu", "mfu_vs_peak", "extract_membw_frac"):
+        require(0 < line[key] <= 1.05, f"bench: {key} {line[key]} outside (0, 1.05]")
+    require(line["graph_captures_in_passes"] == 0, "bench: the timed passes captured graphs")
+    for name in ("fused_stem", "mutual_nn_match", "gather_rows"):
+        require(sum(counts[name].values()) > 0, f"bench: {name} not launched")
+
+
 # --- the scale rehearsal --------------------------------------------------------
 
 # DB images: the largest count whose phase keeps within ~150 s. The full
@@ -3678,6 +3709,7 @@ def main():
     phase_kernel_match_ratio(results)
     phase_kernel_nn(results, "nn_argmax")
     phase_kernel_nn(results, "nn_top2")
+    phase_bench(results)
     phase_grouped_conv(results)
     # The main paths: extract (r1024, then multi-scale labelled r1600),
     # localize (sequential, pipelined, batched), serve, the localizer front

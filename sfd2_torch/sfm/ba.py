@@ -328,17 +328,36 @@ def lm_result(state: LMState) -> BAResult:
 _graph_state: dict = {}
 
 
+def capture_iteration(iterate, state: LMState, pool=None):
+    """One LM iteration captured on the current (side) stream over static
+    copies of `state`, the copy back into them inside the graph: (graph,
+    static state, the K3 launch shapes recorded inside). The caller has run
+    `iterate` eagerly on this stream first (cuBLAS keeps a workspace per
+    stream, which a capture cannot create); `pool`: a memory pool to draw on."""
+    static = LMState(*(t.clone() for t in state))
+    graph = torch.cuda.CUDAGraph()
+    t0 = time.perf_counter()
+    release_cache_for_capture(static.points.get_device())
+    with graph_capture_record() as captured:
+        graph.capture_begin(pool=pool)
+        try:
+            for dst, src in zip(static, iterate(static)):
+                dst.copy_(src)
+        finally:
+            graph.capture_end()
+    bundle_adjust.capture_s += time.perf_counter() - t0
+    bundle_adjust.graph_captures += 1
+    return graph, static, captured
+
+
 def _replay_in_graph(iterate, state: LMState, lm_iters: int) -> LMState:
     """The LM loop on the card, on a side stream of its own (a capture
-    cannot run on the legacy default stream, and cuBLAS keeps a workspace
-    per stream, which the eager iteration creates before the capture):
-    iteration 1 eagerly, then one iteration captured over static copies of
-    the state, the copy back into them inside the graph, replayed
-    lm_iters − 1 times. K3's launches are counted per replay. The call
-    waits for its replays. Each capture draws on the memory pool of the
-    previous call's graph, kept alive until then and never replayed again:
-    a fresh pool per capture pays cudaMalloc on every call, and a pool no
-    graph holds cannot be reused."""
+    cannot run on the legacy default stream): iteration 1 eagerly, then
+    ``capture_iteration``, replayed lm_iters − 1 times. K3's launches are
+    counted per replay. The call waits for its replays. Each capture draws
+    on the memory pool of the previous call's graph, kept alive until then
+    and never replayed again: a fresh pool per capture pays cudaMalloc on
+    every call, and a pool no graph holds cannot be reused."""
     dev = state.points.get_device()
     if dev not in _graph_state:
         _graph_state[dev] = torch.cuda.Stream(dev), None
@@ -349,26 +368,14 @@ def _replay_in_graph(iterate, state: LMState, lm_iters: int) -> LMState:
         if lm_iters >= 1:
             state = iterate(state)
         if lm_iters >= 2:
-            static = LMState(*(t.clone() for t in state))
-            graph = torch.cuda.CUDAGraph()
-            t0 = time.perf_counter()
-            release_cache_for_capture(dev)
-            with graph_capture_record() as captured:
-                graph.capture_begin(pool=None if last is None else last.pool())
-                try:
-                    for dst, src in zip(static, iterate(static)):
-                        dst.copy_(src)
-                finally:
-                    graph.capture_end()
-            bundle_adjust.capture_s += time.perf_counter() - t0
-            bundle_adjust.graph_captures += 1
+            graph, state, captured = capture_iteration(iterate, state,
+                                                       None if last is None else last.pool())
             for _ in range(lm_iters - 1):
                 graph.replay()
             count_graph_replays(captured, lm_iters - 1)
             bundle_adjust.graph_replays += lm_iters - 1
             side.synchronize()
             _graph_state[dev] = side, graph
-            state = static
     caller.wait_stream(side)
     for t in state:
         t.record_stream(caller)
