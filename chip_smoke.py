@@ -186,6 +186,8 @@ from sfd2_torch.parallel import make_mesh
 from sfd2_torch.parallel.distributed import convert_sync_batchnorm, init_process_group
 from sfd2_torch.ops.stem import fused_stem_apply, repack_stem_params, unpack_stem_params
 from sfd2_torch.pipeline.extract import EXTRACTION_CONFS, ExtractionConfig, Extractor
+from sfd2_torch.scripts.bench import batched_breakdown
+from sfd2_torch.utils import profiling
 from sfd2_torch.pipeline.extractors import BaselineConfig, dynamic_load, seeded_init_
 from sfd2_torch.pipeline.match import MatchConfig, match_pairs
 from sfd2_torch.scripts import bench_scale
@@ -2315,13 +2317,19 @@ def phase_localize(results):
     # size these queries reach (query 0 the most, a later query's refinement
     # may reach a larger correspondence bucket); the timed second pass
     # replays them and must capture nothing.
-    graphs.stats.update(captures=0, replays=0, capture_s=0.0)
+    graph_keys = ("captures", "replays", "capture_ns")
+
+    def graph_counts():
+        return {k: profiling.counter(f"graphs.{k}") for k in graph_keys}
+
+    g0 = graph_counts()
     first_ms, first = [], []
     for job in jobs:
         t1 = time.perf_counter()
         first.append(eng.localize(*job))
         first_ms.append((time.perf_counter() - t1) * 1e3)
-    first_graphs = dict(graphs.stats)
+    first_graphs = {k: v - g0[k] for k, v in graph_counts().items()}
+    g1 = graph_counts()
     reset_launches()
     per_q, seq = [], []
     for job in jobs:
@@ -2330,7 +2338,7 @@ def phase_localize(results):
         per_q.append(time.perf_counter() - t1)
     seq_counts = read_launches()
     results["main_path"].append(seq_counts)
-    seq_graphs = {k: graphs.stats[k] - first_graphs[k] for k in first_graphs}
+    seq_graphs = {k: v - g1[k] for k, v in graph_counts().items()}
     r1, r2, q_err, t_err = pose_recall(seq, scene.queries)
 
     reset_launches()
@@ -2341,16 +2349,15 @@ def phase_localize(results):
     results["main_path"].append(par_counts)
 
     eng.localize_throughput(jobs)  # warm: captures the graphs of the batched shapes
-    captures_warm = graphs.stats["captures"]
+    captures_warm = profiling.counter("graphs.captures")
     reset_launches()
-    bstats: dict = {}
-    t0 = time.perf_counter()
-    bat = eng.localize_throughput(jobs, stats=bstats)
-    wall_b = time.perf_counter() - t0
+    with profiling.recording() as recs:
+        t0 = time.perf_counter()
+        bat = eng.localize_throughput(jobs)
+        wall_b = time.perf_counter() - t0
     bat_counts = read_launches()
     results["main_path"].append(bat_counts)
     rb, _, _, _ = pose_recall(bat, scene.queries)
-    acc = sum(v for k, v in bstats.items() if k.endswith("_s"))
     seq_qps = 1.0 / float(np.median(per_q))
 
     emit("localize", scene_build_s=build_s, e2e_query_ms=float(np.median(per_q)) * 1e3,
@@ -2359,21 +2366,20 @@ def phase_localize(results):
          sources=[r.source for r in seq], match_launches=sum(seq_counts["mutual_nn_match"].values()),
          match_shapes=[[*k, v] for k, v in seq_counts["mutual_nn_match"].items()],
          first_pass_ms=first_ms, first_pass_graph_captures=first_graphs["captures"],
-         first_pass_capture_s=first_graphs["capture_s"], graph_captures=seq_graphs["captures"],
+         first_pass_capture_s=first_graphs["capture_ns"] / 1e9,
+         graph_captures=seq_graphs["captures"],
          graph_replays=seq_graphs["replays"],
          e2e_qps_sequential=seq_qps, e2e_qps_pipelined=len(jobs) / wall_p,
          e2e_qps_batched=len(jobs) / wall_b,
          e2e_pipeline_speedup=max(len(jobs) / wall_p, len(jobs) / wall_b) / seq_qps,
          e2e_accept_batched=f"{sum(r.source == 'accepted' for r in bat)}/{len(jobs)}",
          e2e_recall_batched=rb,
-         e2e_batched_breakdown={**{k[:-2] + "_ms": v * 1e3 for k, v in sorted(bstats.items())
-                                   if k.endswith("_s")},
-                                "match_fetch_mb": bstats.get("match_fetch_mb", 0.0),
-                                "other_ms": (wall_b - acc) * 1e3},
+         e2e_batched_breakdown=batched_breakdown(recs, wall_b),
          batched_sources=[r.source for r in bat],
          pipelined_match_shapes=[[*k, v] for k, v in par_counts["mutual_nn_match"].items()],
          batched_match_shapes=[[*k, v] for k, v in bat_counts["mutual_nn_match"].items()],
-         graph_captures_total=graphs.stats["captures"], graph_replays_total=graphs.stats["replays"])
+         graph_captures_total=profiling.counter("graphs.captures"),
+         graph_replays_total=profiling.counter("graphs.replays"))
     require(r1 >= 0.875, f"localize: recall@(0.25m, 2deg) {r1} < 0.875")
     require(rb >= 0.875, f"localize_throughput: recall@(0.25m, 2deg) {rb} < 0.875")
     require(seq_graphs["captures"] == 0,
@@ -2381,7 +2387,7 @@ def phase_localize(results):
     require(seq_graphs["replays"] > 0, "localize: no CUDA graph was replayed")
     require(same_results(first, seq), "localize: the second pass differs from the first")
     require(same_results(seq, par), "localize_many: results differ from the sequential loop")
-    require(graphs.stats["captures"] == captures_warm,
+    require(profiling.counter("graphs.captures") == captures_warm,
             "localize_throughput: the timed run captured graphs anew")
     for name, counts in (("localize", seq_counts), ("localize_many", par_counts),
                          ("localize_throughput", bat_counts)):
@@ -2441,6 +2447,7 @@ def phase_serve(results, store, scene, seq):
     ``make_server`` in a thread: /healthz, then the 8 queries POSTed from 4
     client threads; every answer 200 and equal to ``engine.localize``'s,
     and at least two requests in flight at once."""
+    misses = profiling.counter("engine.bank_misses")  # the service's bank uploads from here
     service = LocalizationService(scene.map_index, store, LocalizerConfig(**LOCALIZE_CONFIG),
                                   device="cuda")
     warm_s = service.warmup()
@@ -2476,7 +2483,7 @@ def phase_serve(results, store, scene, seq):
     try:
         with urllib.request.urlopen(f"{url}/healthz", timeout=60) as r:
             health = json.loads(r.read())
-        captures = graphs.stats["captures"]
+        captures = profiling.counter("graphs.captures")
         reset_launches()
         t0 = time.perf_counter()
         with ThreadPoolExecutor(max_workers=4) as pool:
@@ -2495,15 +2502,16 @@ def phase_serve(results, store, scene, seq):
     emit("serve", warmup_s=warm_s, healthz=health, statuses=[c for c, _, _ in replies],
          request_ms=[res["ms"] for _, res, _ in replies], client_ms=[ms for _, _, ms in replies],
          wall_s=wall, qps=len(replies) / wall, peak_in_flight=peak[0], equal_to_engine=equal,
-         graph_captures=graphs.stats["captures"] - captures,
-         bank_uploads=service.engine.bank_uploads,
+         graph_captures=profiling.counter("graphs.captures") - captures,
+         bank_uploads=profiling.counter("engine.bank_misses") - misses,
          match_launches=sum(counts["mutual_nn_match"].values()))
     require(health.get("ok") and health.get("images") == len(scene.map_index.images),
             f"serve: /healthz answered {health}")
     require(all(c == 200 for c, _, _ in replies), "serve: a request did not answer 200")
     require(equal, "serve: answers differ from engine.localize's")
     require(peak[0] >= 2, f"serve: requests never overlapped (peak {peak[0]})")
-    require(graphs.stats["captures"] == captures, "serve: requests captured graphs anew")
+    require(profiling.counter("graphs.captures") == captures,
+            "serve: requests captured graphs anew")
     require(sum(counts["mutual_nn_match"].values()) > 0, "serve: the matcher kernel was not launched")
 
 
@@ -2758,15 +2766,15 @@ class RecordBA:
     """For the duration of a `with`: every ``bundle_adjust`` call of the
     map phases (``run_map_build``'s own and ``incremental_reconstruction``'s)
     is kept with its arguments, result and seconds (the device
-    synchronised), and bundle adjustment's graph statistics start from 0."""
+    synchronised), and bundle adjustment's graph counters in the block
+    (``graph``: captures, replays, capture_s)."""
 
     def __init__(self, device):
         self.sync = device_sync(device)
 
     def __enter__(self):
         self.calls, self.seconds = [], 0.0
-        bundle_adjust.graph_captures = bundle_adjust.graph_replays = 0
-        bundle_adjust.capture_s = 0.0
+        self._counts0 = self._counts()
 
         def recorded(problem, **kwargs):
             t0 = time.perf_counter()
@@ -2782,6 +2790,14 @@ class RecordBA:
 
     def __exit__(self, *exc):
         globals()["_run_ba"], sfm_reconstruction.bundle_adjust = self._orig
+        c = {k: v - self._counts0[k] for k, v in self._counts().items()}
+        self.graph = dict(captures=c["captures"], replays=c["replays"],
+                          capture_s=c["capture_ns"] / 1e9)
+
+    @staticmethod
+    def _counts():
+        return {k: profiling.counter(f"ba.{k}")
+                for k in ("captures", "replays", "capture_ns")}
 
 
 _run_ba = bundle_adjust  # run_map_build's bundle_adjust (RecordBA swaps it)
@@ -2824,8 +2840,8 @@ def ba_against_eager(rec: RecordBA, what: str) -> dict:
     give the first ones' bits (no deterministic-algorithms mode is set: the
     sums run in ``SegmentPlan``'s fixed order)."""
     out = dict(calls=len(rec.calls), ba_graph_s=rec.seconds, ba_eager_s=0.0,
-               ba_graph_warm_s=0.0, graph_captures=bundle_adjust.graph_captures,
-               graph_replays=bundle_adjust.graph_replays, capture_s=bundle_adjust.capture_s,
+               ba_graph_warm_s=0.0, graph_captures=rec.graph["captures"],
+               graph_replays=rec.graph["replays"], capture_s=rec.graph["capture_s"],
                deterministic_algorithms=torch.are_deterministic_algorithms_enabled(),
                graph_vs_eager=[], graph_runs_identical=0, eager_runs_identical=0,
                graph_equals_eager_bits=0)
@@ -3098,12 +3114,14 @@ def phase_map_build(results, store, scene):
 
 def phase_reconstruct(results, store, scene):
     reset_launches()
-    before = dict(graphs.stats)
+    keys = ("captures", "replays", "capture_ns")
+    before = {k: profiling.counter(f"graphs.{k}") for k in keys}
     with RecordBA("cuda") as rec:
         out = run_reconstruct(store, scene, "cuda", max_keypoints=4096)
     counts = read_launches()
     results["main_path"].append(counts)
-    pnp_graphs = {k: graphs.stats[k] - before[k] for k in before}
+    pnp_graphs = {k: profiling.counter(f"graphs.{k}") - before[k] for k in keys}
+    pnp_graphs["capture_s"] = pnp_graphs.pop("capture_ns") / 1e9
     emit("reconstruct", **out, launches={k: sum(v.values()) for k, v in counts.items()},
          launch_shapes=launches_by_shape(counts), pnp_graphs=pnp_graphs)
     require(counts["mutual_nn_ratio_match"] and counts["gather_rows"],
@@ -3163,15 +3181,20 @@ SERVE_MAIN = """
 import json, runpy, sys
 sys.modules["h5py"] = None  # any import of h5py raises
 sys.argv = ["serve", *sys.argv[1:]]
-from sfd2_torch.localization import graphs
 from sfd2_torch.serving.server import LocalizationService
-services, warm = [], {}
+from sfd2_torch.utils import profiling
+warm = {}
 warmup = LocalizationService.warmup
 
-def recorded(self):  # the graphs and bank uploads as the warm-up leaves them
+def counts():  # the graphs and bank uploads so far
+    return dict(captures=profiling.counter("graphs.captures"),
+                replays=profiling.counter("graphs.replays"),
+                capture_s=profiling.counter("graphs.capture_ns") / 1e9,
+                bank_uploads=profiling.counter("engine.bank_misses"))
+
+def recorded(self):  # as the warm-up leaves them
     seconds = warmup(self)
-    services.append(self)
-    warm.update(graphs.stats, warmup_s=seconds, bank_uploads=self.engine.bank_uploads)
+    warm.update(counts(), warmup_s=seconds)
     return seconds
 
 LocalizationService.warmup = recorded
@@ -3182,8 +3205,7 @@ finally:
     print(json.dumps({"match_launches": mutual_nn_match_cuda.launches,
                       "h5py_loaded": sys.modules.get("h5py") is not None,
                       "after_warmup": warm,
-                      "at_exit": dict(graphs.stats, bank_uploads=sum(
-                          s.engine.bank_uploads for s in services))}), flush=True)
+                      "at_exit": counts()}), flush=True)
 """
 
 
@@ -3191,8 +3213,8 @@ def serve_from_files(tmp: Path, model: Path, features: Path, scene, seq, device)
     """``cli/serve.py`` in a subprocess (h5py blocked there too) on the
     feature file: /healthz once warm, then SERVE_QUERIES queries from 2
     client threads, each answer equal to ``engine.localize``'s, and no
-    graph captured during the requests (the process reports ``graphs.stats``
-    and its bank uploads after the warm-up and at exit); SIGINT stops it."""
+    graph captured during the requests (the process reports its graph
+    counters and bank uploads after the warm-up and at exit); SIGINT stops it."""
     argv = ["--reference_sfm", str(model), "--features", str(features), "--port",
             str(free_port()), "--max_keypoints", str(LOCALIZE_CONFIG["max_keypoints"]),
             "--pnp_pad_floor", str(LOCALIZE_CONFIG["pnp_pad_floor"]), "--device", device]

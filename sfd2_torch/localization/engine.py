@@ -39,7 +39,6 @@ from __future__ import annotations
 
 import dataclasses
 import threading
-import time
 from collections import OrderedDict
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -56,6 +55,7 @@ from sfd2_torch.localization.ransac import fold_seed, pnp_ransac_program, sample
 from sfd2_torch.ops.matching import batch_matcher
 from sfd2_torch.sfm.map_index import MapIndex
 from sfd2_torch.utils.device import resolve_device
+from sfd2_torch.utils.profiling import count, span, waited
 
 _D_BUCKETS = (1, 4, 8, 16, 32, 64, 128)
 _MAX_PAIRS = 128  # flattened (query, bank) pairs per matcher launch of _batched_match
@@ -111,13 +111,15 @@ class QueryResult:
 
 
 def _covis_frames(map_index: MapIndex, cfg: LocalizerConfig, seed_image_id: int, qvec, tvec):
-    if "obs" in cfg.opt_type:
-        return map_index.covis_frames_obs(seed_image_id, covisibility_frame=cfg.covisibility_frame,
-                                          obs_th=cfg.obs_thresh, pred_qvec=qvec, pred_tvec=tvec)
-    if "pos" in cfg.opt_type:
-        return map_index.covis_frames_pose(seed_image_id, qvec, tvec,
-                                           covisibility_frame=cfg.covisibility_frame,
-                                           q_th=10.0, t_th=10.0, obs_th=cfg.obs_thresh)
+    with span("engine.frames"):
+        if "obs" in cfg.opt_type:
+            return map_index.covis_frames_obs(
+                seed_image_id, covisibility_frame=cfg.covisibility_frame, obs_th=cfg.obs_thresh,
+                pred_qvec=qvec, pred_tvec=tvec)
+        if "pos" in cfg.opt_type:
+            return map_index.covis_frames_pose(seed_image_id, qvec, tvec,
+                                               covisibility_frame=cfg.covisibility_frame,
+                                               q_th=10.0, t_th=10.0, obs_th=cfg.obs_thresh)
     raise ValueError(f"opt_type {cfg.opt_type!r} needs 'obs' or 'pos'")
 
 
@@ -154,8 +156,6 @@ class LocalizationEngine:
         self._pinned: Dict[str, tuple] = {}
         self._pinned_dev: Dict[str, tuple] = {}
         self._dev_zero_entry = None
-        # Banks uploaded from the store to the device (cache misses).
-        self.bank_uploads = 0
         # The caches, the feature store (an ``io/h5file.py`` file indexes a
         # group on its first lookup) and the padding entry are the state that
         # concurrent localize() calls share.
@@ -168,15 +168,16 @@ class LocalizationEngine:
         """Padded (kp, desc, valid3d, p3d_rows, labels) of a DB image, LRU-cached
         (desc is None for an injected bank)."""
         name = self.map.images[image_id].name
-        with self._cache_lock:
+        with waited(self._cache_lock, "engine.cache_lock_wait"):
             if name in self._pinned:
                 return self._pinned[name]
             if name in self._db_cache:
                 self._db_cache.move_to_end(name)
                 return self._db_cache[name]
-            kp, desc, _, valid, labels = self.features.read_padded(
-                name, self.cfg.max_keypoints, with_labels=True)
-            valid3d, prow = self._valid3d(image_id, valid)
+            with span("engine.bank_read"):
+                kp, desc, _, valid, labels = self.features.read_padded(
+                    name, self.cfg.max_keypoints, with_labels=True)
+                valid3d, prow = self._valid3d(image_id, valid)
             entry = (kp, desc, valid3d, prow, labels)
             self._db_cache[name] = entry
             if len(self._db_cache) > self.cfg.db_cache_images:
@@ -204,17 +205,21 @@ class LocalizationEngine:
 
     def _db_feats_dev(self, image_id: int):
         """Device-resident (desc [K,C], valid3d [K], labels [K]) of a DB image,
-        uploaded once and LRU-cached (injected banks are pinned)."""
+        uploaded once and LRU-cached (injected banks are pinned). Counts
+        ``engine.bank_lookups`` and ``engine.bank_misses``, also as the
+        ``lookups`` and ``misses`` tags of the span open around the call."""
         name = self.map.images[image_id].name
-        with self._cache_lock:
+        count("engine.bank_lookups", tag="lookups")
+        with waited(self._cache_lock, "engine.cache_lock_wait"):
             if name in self._pinned_dev:
                 return self._pinned_dev[name]
             if name in self._db_dev_cache:
                 self._db_dev_cache.move_to_end(name)
                 return self._db_dev_cache[name]
+            count("engine.bank_misses", tag="misses")
             _, desc, valid3d, _, labels = self._db_feats(image_id)
-            entry = self._dev_entry(torch.from_numpy(desc), valid3d, labels)
-            self.bank_uploads += 1
+            with span("engine.bank_upload"):
+                entry = self._dev_entry(torch.from_numpy(desc), valid3d, labels)
             self._db_dev_cache[name] = entry
             if len(self._db_dev_cache) > self.cfg.db_cache_images:
                 self._db_dev_cache.popitem(last=False)
@@ -222,7 +227,7 @@ class LocalizationEngine:
 
     def _dev_zero(self, c: int):
         """All-invalid padding bank for slots past len(db_ids)."""
-        with self._cache_lock:
+        with waited(self._cache_lock, "engine.cache_lock_wait"):
             if self._dev_zero_entry is None or self._dev_zero_entry[0].shape[1] != c:
                 k, dev = self.cfg.max_keypoints, self.device
                 self._dev_zero_entry = (
@@ -271,28 +276,29 @@ class LocalizationEngine:
         if self.mesh is not None:  # whole shares per device
             n_dev = self.mesh.shape["data"]
             d_pad = -(-d_pad // n_dev) * n_dev
-        c = q_desc.shape[1]
-        entries = [self._db_feats_dev(iid) for iid in db_ids]
-        entries += [self._dev_zero(c)] * (d_pad - len(db_ids))
-        bank = torch.stack([e[0] for e in entries])
-        bval = torch.stack([e[1] for e in entries])
-        if self.mesh is not None:
-            from sfd2_torch.ops.sharded_match import query_vs_sharded_bank
+        with span("engine.match", banks=d_pad, real_banks=len(db_ids), lookups=0, misses=0):
+            c = q_desc.shape[1]
+            entries = [self._db_feats_dev(iid) for iid in db_ids]
+            entries += [self._dev_zero(c)] * (d_pad - len(db_ids))
+            bank = torch.stack([e[0] for e in entries])
+            bval = torch.stack([e[1] for e in entries])
+            if self.mesh is not None:
+                from sfd2_torch.ops.sharded_match import query_vs_sharded_bank
 
-            matches, _ = query_vs_sharded_bank(
-                self.mesh, q_desc, bank, q_valid, bval,
-                q_labels if self._label_aware else None,
-                torch.stack([e[2] for e in entries]) if self._label_aware else None)
+                matches, _ = query_vs_sharded_bank(
+                    self.mesh, q_desc, bank, q_valid, bval,
+                    q_labels if self._label_aware else None,
+                    torch.stack([e[2] for e in entries]) if self._label_aware else None)
+                return matches[: len(db_ids)].cpu().numpy().astype(np.int64)
+            q = q_desc.to(bank.dtype)[None].expand(d_pad, *q_desc.shape)
+            qv = q_valid[None].expand(d_pad, q_valid.shape[0])
+            if self._label_aware:
+                ql = q_labels[None].expand(d_pad, q_labels.shape[0])
+                matches, _ = self._matcher(q, bank, qv, bval, ql,
+                                           torch.stack([e[2] for e in entries]))
+            else:
+                matches, _ = self._matcher(q, bank, qv, bval)
             return matches[: len(db_ids)].cpu().numpy().astype(np.int64)
-        q = q_desc.to(bank.dtype)[None].expand(d_pad, *q_desc.shape)
-        qv = q_valid[None].expand(d_pad, q_valid.shape[0])
-        if self._label_aware:
-            ql = q_labels[None].expand(d_pad, q_labels.shape[0])
-            matches, _ = self._matcher(q, bank, qv, bval, ql,
-                                       torch.stack([e[2] for e in entries]))
-        else:
-            matches, _ = self._matcher(q, bank, qv, bval)
-        return matches[: len(db_ids)].cpu().numpy().astype(np.int64)
 
     # ------------------------------------------------------------------
     def _assemble_2d3d(self, kpq, matches, db_ids, obs_th: int, dedup: Dict[int, set],
@@ -300,48 +306,49 @@ class LocalizationEngine:
         """2D-3D correspondences with first-occurrence (qid, p3d) dedup in DB
         order, track-length filter and optional reprojection-radius gate
         (``match_cluster_2D:563`` + the refinement gate ``:341-350``)."""
-        all_q, all_p = [], []
-        per_db: Dict[int, np.ndarray] = {}
-        for di, iid in enumerate(db_ids):
-            _, _, _, prow, _ = self._db_feats(iid)
-            m = matches[di]
-            qidx = np.nonzero(m >= 0)[0]
-            rows = prow[m[qidx]]
-            ok = rows >= 0
-            qidx, rows = qidx[ok], rows[ok]
-            ok = self.map.track_len[rows] >= obs_th
-            qidx, rows = qidx[ok], rows[ok]
-            per_db[iid] = np.stack([qidx, rows], 1) if len(qidx) else np.zeros((0, 2), np.int64)
-            all_q.append(qidx)
-            all_p.append(rows)
+        with span("engine.assemble"):
+            all_q, all_p = [], []
+            per_db: Dict[int, np.ndarray] = {}
+            for di, iid in enumerate(db_ids):
+                _, _, _, prow, _ = self._db_feats(iid)
+                m = matches[di]
+                qidx = np.nonzero(m >= 0)[0]
+                rows = prow[m[qidx]]
+                ok = rows >= 0
+                qidx, rows = qidx[ok], rows[ok]
+                ok = self.map.track_len[rows] >= obs_th
+                qidx, rows = qidx[ok], rows[ok]
+                per_db[iid] = np.stack([qidx, rows], 1) if len(qidx) else np.zeros((0, 2), np.int64)
+                all_q.append(qidx)
+                all_p.append(rows)
 
-        if not all_q or sum(len(a) for a in all_q) == 0:
-            return (np.zeros((0, 3)), np.zeros((0, 2)), np.zeros(0, np.int64),
-                    np.zeros(0, np.int64), per_db)
-        q_cat = np.concatenate(all_q).astype(np.int64)
-        p_cat = np.concatenate(all_p).astype(np.int64)
-        keys = q_cat * (self.map.incidence.shape[1] + 1) + p_cat
-        if dedup:
-            prior = np.array([pr in dedup.get(int(qi), ()) for qi, pr in zip(q_cat, p_cat)])
-        else:
-            prior = np.zeros(len(q_cat), bool)
-        _, first_idx = np.unique(keys, return_index=True)
-        keep = np.zeros(len(keys), bool)
-        keep[first_idx] = True
-        keep &= ~prior
-        q_ids = q_cat[keep]
-        p3d_rows = p_cat[keep]
-        for qi, pr in zip(q_ids, p3d_rows):
-            dedup.setdefault(int(qi), set()).add(int(pr))
+            if not all_q or sum(len(a) for a in all_q) == 0:
+                return (np.zeros((0, 3)), np.zeros((0, 2)), np.zeros(0, np.int64),
+                        np.zeros(0, np.int64), per_db)
+            q_cat = np.concatenate(all_q).astype(np.int64)
+            p_cat = np.concatenate(all_p).astype(np.int64)
+            keys = q_cat * (self.map.incidence.shape[1] + 1) + p_cat
+            if dedup:
+                prior = np.array([pr in dedup.get(int(qi), ()) for qi, pr in zip(q_cat, p_cat)])
+            else:
+                prior = np.zeros(len(q_cat), bool)
+            _, first_idx = np.unique(keys, return_index=True)
+            keep = np.zeros(len(keys), bool)
+            keep[first_idx] = True
+            keep &= ~prior
+            q_ids = q_cat[keep]
+            p3d_rows = p_cat[keep]
+            for qi, pr in zip(q_ids, p3d_rows):
+                dedup.setdefault(int(qi), set()).add(int(pr))
 
-        mp3d = self.map.point_xyz[p3d_rows]
-        mkpq = kpq[q_ids].astype(np.float64)
-        if gate_pose is not None and radius > 0 and len(mp3d):
-            proj, _ = _np_project(mp3d, gate_pose[0], gate_pose[1], cam8)
-            ok = np.linalg.norm(mkpq - proj, axis=1) <= radius
-            mp3d, mkpq = mp3d[ok], mkpq[ok]
-            p3d_rows, q_ids = p3d_rows[ok], q_ids[ok]
-        return mp3d, mkpq + 0.5, p3d_rows, q_ids, per_db  # +0.5: COLMAP origin
+            mp3d = self.map.point_xyz[p3d_rows]
+            mkpq = kpq[q_ids].astype(np.float64)
+            if gate_pose is not None and radius > 0 and len(mp3d):
+                proj, _ = _np_project(mp3d, gate_pose[0], gate_pose[1], cam8)
+                ok = np.linalg.norm(mkpq - proj, axis=1) <= radius
+                mp3d, mkpq = mp3d[ok], mkpq[ok]
+                p3d_rows, q_ids = p3d_rows[ok], q_ids[ok]
+            return mp3d, mkpq + 0.5, p3d_rows, q_ids, per_db  # +0.5: COLMAP origin
 
     # ------------------------------------------------------------------
     def _pad_bucket(self, n: int) -> int:
@@ -380,7 +387,8 @@ class LocalizationEngine:
                 int(row[7]), bool(row[8] > 0.5))
 
     def _run_pnp(self, mkpq, mp3d, cam8, thresh, seed=0):
-        out = self._pnp_batch([(mkpq, mp3d, cam8)], thresh, [seed]).cpu().numpy()  # one fetch
+        with span("engine.pnp"):
+            out = self._pnp_batch([(mkpq, mp3d, cam8)], thresh, [seed]).cpu().numpy()  # one fetch
         return self._unpack_pnp(out[0], len(mkpq))
 
     def _refine_batch(self, items: Sequence[tuple], qp: int,
@@ -390,25 +398,26 @@ class LocalizationEngine:
         benign camera) and one correspondence bucket (`n_pad`, by default
         the items' own), in one program; fetched once: [qp, 8 + iters] =
         qvec, tvec, num, nums."""
-        dev = self.device
-        n_pad = n_pad or self._pad_bucket(max(len(it[2]) for it in items))
-        qv = np.zeros((qp, 4), np.float32)
-        qv[:, 0] = 1.0
-        tv = np.zeros((qp, 3), np.float32)
-        p3 = np.zeros((qp, n_pad, 3), np.float32)
-        kp = np.zeros((qp, n_pad, 2), np.float32)
-        ms = np.zeros((qp, n_pad), bool)
-        cams = np.zeros((qp, 8), np.float32)
-        cams[:, :2] = 1.0
-        for i, (q, t, mkpq, mp3d, inl, cam8) in enumerate(items):
-            n = len(mkpq)
-            qv[i], tv[i] = q, t
-            p3[i, :n], kp[i, :n], ms[i, :n] = mp3d, mkpq, inl
-            cams[i] = np.asarray(cam8, np.float32).reshape(8)
-        t32 = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
-        return graphs.run(refine_pose_iterative_program(
-            t32(qv), t32(tv), t32(p3), t32(kp), t32(cams), t32(ms), float(self.cfg.opt_thresh),
-            iters=self.cfg.iters)).cpu().numpy()
+        with span("engine.refine"):
+            dev = self.device
+            n_pad = n_pad or self._pad_bucket(max(len(it[2]) for it in items))
+            qv = np.zeros((qp, 4), np.float32)
+            qv[:, 0] = 1.0
+            tv = np.zeros((qp, 3), np.float32)
+            p3 = np.zeros((qp, n_pad, 3), np.float32)
+            kp = np.zeros((qp, n_pad, 2), np.float32)
+            ms = np.zeros((qp, n_pad), bool)
+            cams = np.zeros((qp, 8), np.float32)
+            cams[:, :2] = 1.0
+            for i, (q, t, mkpq, mp3d, inl, cam8) in enumerate(items):
+                n = len(mkpq)
+                qv[i], tv[i] = q, t
+                p3[i, :n], kp[i, :n], ms[i, :n] = mp3d, mkpq, inl
+                cams[i] = np.asarray(cam8, np.float32).reshape(8)
+            t32 = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+            return graphs.run(refine_pose_iterative_program(
+                t32(qv), t32(tv), t32(p3), t32(kp), t32(cams), t32(ms), float(self.cfg.opt_thresh),
+                iters=self.cfg.iters)).cpu().numpy()
 
     def _apply_refine(self, row: np.ndarray, qvec, tvec, num: int):
         """(qvec, tvec, num, log) after one packed refinement row."""
@@ -450,105 +459,110 @@ class LocalizationEngine:
                             tvec: np.ndarray) -> Tuple[np.ndarray, np.ndarray, int, str]:
         """``pose_refinement_covisibility``: expand frames, re-match, gate by
         reprojection radius, PnP at opt_th, then iters× re-select + refine."""
-        cfg = self.cfg
-        db_ids = _covis_frames(self.map, cfg, seed_image_id, qvec, tvec)
-        kpq, q_desc, q_valid, q_labels = q_feats
-        matches = self._match_query_to_dbs(q_desc, q_valid, db_ids, q_labels)
-        mp3d, mkpq, _, _, _ = self._assemble_2d3d(
-            kpq, matches, db_ids, cfg.obs_thresh, dedup={},
-            gate_pose=(qvec, tvec), cam8=cam8, radius=cfg.radius)
-        log = f"covis refine: {len(db_ids)} frames, {len(mkpq)} matches\n"
-        if len(mkpq) < 6:
-            return qvec, tvec, 0, log + "too few matches, keep pose\n"
+        with span("engine.refine_covis"):
+            cfg = self.cfg
+            db_ids = _covis_frames(self.map, cfg, seed_image_id, qvec, tvec)
+            kpq, q_desc, q_valid, q_labels = q_feats
+            matches = self._match_query_to_dbs(q_desc, q_valid, db_ids, q_labels)
+            mp3d, mkpq, _, _, _ = self._assemble_2d3d(
+                kpq, matches, db_ids, cfg.obs_thresh, dedup={},
+                gate_pose=(qvec, tvec), cam8=cam8, radius=cfg.radius)
+            log = f"covis refine: {len(db_ids)} frames, {len(mkpq)} matches\n"
+            if len(mkpq) < 6:
+                return qvec, tvec, 0, log + "too few matches, keep pose\n"
 
-        q_new, t_new, inliers_rsac, num, success = self._run_pnp(
-            mkpq, mp3d, cam8, cfg.opt_thresh, seed=1)
-        if not success:
-            return qvec, tvec, 0, log + "refinement RANSAC failed, keep pose\n"
-        qvec, tvec = q_new, t_new
+            q_new, t_new, inliers_rsac, num, success = self._run_pnp(
+                mkpq, mp3d, cam8, cfg.opt_thresh, seed=1)
+            if not success:
+                return qvec, tvec, 0, log + "refinement RANSAC failed, keep pose\n"
+            qvec, tvec = q_new, t_new
 
-        if "ref" in cfg.opt_type and inliers_rsac.sum() >= 10:
-            row = self._refine_batch([(qvec, tvec, mkpq, mp3d, inliers_rsac, cam8)], 1)[0]
-            qvec, tvec, num, rlog = self._apply_refine(row, qvec, tvec, num)
-            log += rlog
-        return qvec, tvec, num, log
+            if "ref" in cfg.opt_type and inliers_rsac.sum() >= 10:
+                row = self._refine_batch([(qvec, tvec, mkpq, mp3d, inliers_rsac, cam8)], 1)[0]
+                qvec, tvec, num, rlog = self._apply_refine(row, qvec, tvec, num)
+                log += rlog
+            return qvec, tvec, num, log
 
     # ------------------------------------------------------------------
     def _query_feats(self, qname: str):
         """(kp [K,2] host, desc [K,C], valid [K], labels [K] or None on the
         device) of a query, read once: every match round reuses them."""
-        with self._cache_lock:  # the store indexes a group on its first lookup
-            kpq, q_desc, _, q_valid, q_labels = self.features.read_padded(
-                qname, self.cfg.max_keypoints, with_labels=True)
-        dev = self.device
-        return (kpq, torch.from_numpy(q_desc).to(dev), torch.from_numpy(q_valid).to(dev),
-                torch.from_numpy(q_labels).to(dev) if self._label_aware else None)
+        with span("engine.query_feats"):
+            # The store indexes a group on its first lookup.
+            with waited(self._cache_lock, "engine.cache_lock_wait"):
+                kpq, q_desc, _, q_valid, q_labels = self.features.read_padded(
+                    qname, self.cfg.max_keypoints, with_labels=True)
+            dev = self.device
+            return (kpq, torch.from_numpy(q_desc).to(dev), torch.from_numpy(q_valid).to(dev),
+                    torch.from_numpy(q_labels).to(dev) if self._label_aware else None)
 
     def localize(self, qname: str, qinfo, clusters: Sequence[Sequence[int]]) -> QueryResult:
         """``pose_from_cluster_with_matcher`` over candidate clusters (each a
         list of DB image ids, e.g. singletons for init_type='sng')."""
-        cfg = self.cfg
-        model, _, _, params = qinfo
-        cam8 = canonicalize_params(model, params)
-        q_feats = self._query_feats(qname)
-        kpq = q_feats[0]
-        log = ""
+        with span("engine.localize"):
+            cfg = self.cfg
+            model, _, _, params = qinfo
+            cam8 = canonicalize_params(model, params)
+            q_feats = self._query_feats(qname)
+            kpq = q_feats[0]
+            log = ""
 
-        # The first cluster is matched alone (easy queries stop there); on
-        # the first miss all remaining candidates are matched in one launch.
-        match_of: Dict[int, np.ndarray] = {}
+            # The first cluster is matched alone (easy queries stop there); on
+            # the first miss all remaining candidates are matched in one launch.
+            match_of: Dict[int, np.ndarray] = {}
 
-        def ensure_matched(ci: int):
-            cluster = clusters[ci]
-            if all(iid in match_of for iid in cluster):
-                return
-            todo = sorted({iid for c in clusters[ci:] for iid in c if iid not in match_of}
-                          ) if ci > 0 else sorted(set(cluster))
-            m = self._match_query_to_dbs(q_feats[1], q_feats[2], todo, q_feats[3])
-            for i, iid in enumerate(todo):
-                match_of[iid] = m[i]
+            def ensure_matched(ci: int):
+                cluster = clusters[ci]
+                if all(iid in match_of for iid in cluster):
+                    return
+                todo = sorted({iid for c in clusters[ci:] for iid in c if iid not in match_of}
+                              ) if ci > 0 else sorted(set(cluster))
+                m = self._match_query_to_dbs(q_feats[1], q_feats[2], todo, q_feats[3])
+                for i, iid in enumerate(todo):
+                    match_of[iid] = m[i]
 
-        best = {"num_inliers": 0, "qvec": None, "tvec": None, "db_id": None}
-        for ci, cluster in enumerate(clusters):
-            if not cluster:
-                continue
-            ensure_matched(ci)
-            matches = np.stack([match_of[iid] for iid in cluster])
-            mp3d, mkpq, p3d_rows, q_ids, per_db = self._assemble_2d3d(
-                kpq, matches, cluster, obs_th=3, dedup={})
-            if len(mp3d) < 8:
-                log += f"cluster {ci}: only {len(mp3d)} matches, skip\n"
-                continue
-            qv, tv, inliers, num, success = self._run_pnp(
-                mkpq, mp3d, cam8, cfg.ransac_thresh, seed=ci)
-            if not success:
-                log += f"cluster {ci}: PnP failed\n"
-                continue
-            best_single, best_db = _best_single(cfg, inliers, q_ids, p3d_rows, per_db, cluster)
-            if best_single >= 8 and num > best["num_inliers"]:
-                best.update(num_inliers=num, qvec=qv, tvec=tv, db_id=best_db)
-            if num < cfg.inlier_thresh or best_single < 10:
-                log += f"cluster {ci}: weak ({best_single}/{num} inliers)\n"
-                continue
+            best = {"num_inliers": 0, "qvec": None, "tvec": None, "db_id": None}
+            for ci, cluster in enumerate(clusters):
+                if not cluster:
+                    continue
+                ensure_matched(ci)
+                matches = np.stack([match_of[iid] for iid in cluster])
+                mp3d, mkpq, p3d_rows, q_ids, per_db = self._assemble_2d3d(
+                    kpq, matches, cluster, obs_th=3, dedup={})
+                if len(mp3d) < 8:
+                    log += f"cluster {ci}: only {len(mp3d)} matches, skip\n"
+                    continue
+                qv, tv, inliers, num, success = self._run_pnp(
+                    mkpq, mp3d, cam8, cfg.ransac_thresh, seed=ci)
+                if not success:
+                    log += f"cluster {ci}: PnP failed\n"
+                    continue
+                best_single, best_db = _best_single(cfg, inliers, q_ids, p3d_rows, per_db, cluster)
+                if best_single >= 8 and num > best["num_inliers"]:
+                    best.update(num_inliers=num, qvec=qv, tvec=tv, db_id=best_db)
+                if num < cfg.inlier_thresh or best_single < 10:
+                    log += f"cluster {ci}: weak ({best_single}/{num} inliers)\n"
+                    continue
 
-            log += f"cluster {ci}: accepted ({best_single}/{num} inliers)\n"
-            if cfg.do_covisibility_opt and "clu" in cfg.opt_type:
-                qv, tv, num, rlog = self.refine_covisibility(qname, cam8, q_feats, best_db, qv, tv)
-                log += rlog
-            return QueryResult(qv, tv, num, log, source="accepted")
+                log += f"cluster {ci}: accepted ({best_single}/{num} inliers)\n"
+                if cfg.do_covisibility_opt and "clu" in cfg.opt_type:
+                    qv, tv, num, rlog = self.refine_covisibility(qname, cam8, q_feats, best_db,
+                                                                 qv, tv)
+                    log += rlog
+                return QueryResult(qv, tv, num, log, source="accepted")
 
-        if best["num_inliers"] >= 10:
-            qv, tv = best["qvec"], best["tvec"]
-            if cfg.do_covisibility_opt and "clu" in cfg.opt_type:
-                qv, tv, _, rlog = self.refine_covisibility(
-                    qname, cam8, q_feats, best["db_id"], qv, tv)
-                log += rlog
-            return QueryResult(qv, tv, 0, log, source="best_fallback")
+            if best["num_inliers"] >= 10:
+                qv, tv = best["qvec"], best["tvec"]
+                if cfg.do_covisibility_opt and "clu" in cfg.opt_type:
+                    qv, tv, _, rlog = self.refine_covisibility(
+                        qname, cam8, q_feats, best["db_id"], qv, tv)
+                    log += rlog
+                return QueryResult(qv, tv, 0, log, source="best_fallback")
 
-        top = self.map.images[clusters[0][0]]
-        log += f"failed; using pose of {top.name}\n"
-        return QueryResult(np.array(top.qvec), np.array(top.tvec), -1, log,
-                           source="retrieval_fallback")
+            top = self.map.images[clusters[0][0]]
+            log += f"failed; using pose of {top.name}\n"
+            return QueryResult(np.array(top.qvec), np.array(top.tvec), -1, log,
+                               source="retrieval_fallback")
 
     # ------------------------------------------------------------------
     def localize_many(self, queries: Sequence[Tuple[str, tuple, Sequence[Sequence[int]]]],
@@ -563,40 +577,31 @@ class LocalizationEngine:
         with ThreadPoolExecutor(max_workers=workers) as pool:
             return list(pool.map(lambda q: self.localize(*q), queries))
 
-    @staticmethod
-    def _tick(stats, phase: str, t0: float) -> float:
-        """Accumulate wall-clock into stats[phase]; returns a new t0."""
-        now = time.perf_counter()
-        if stats is not None:
-            stats[phase] = stats.get(phase, 0.0) + (now - t0)
-        return now
-
-    def _batched_match(self, q_feats_dev: List[tuple], banks_per_q: List[List[int]],
-                       stats: Optional[Dict[str, float]] = None) -> np.ndarray:
+    def _batched_match(self, q_feats_dev: List[tuple], banks_per_q: List[List[int]]
+                       ) -> np.ndarray:
         """Matcher launches for several queries, query i against its padded
         bank group: matches [Q, D, K] (−1 for no match). The flattened
         (query, bank) axis is cut into chunks of at most 128 pairs, every
         chunk launched before any is fetched (the launches are
-        asynchronous), and fetched as int16 below 32768 keypoints."""
+        asynchronous), and fetched as int16 below 32768 keypoints (the
+        fetch's span is tagged with its megabytes, ``mb``)."""
         k = self.cfg.max_keypoints
         d = max(1, max(len(b) for b in banks_per_q))
         per_chunk = max(1, _MAX_PAIRS // d) if len(banks_per_q) * d > _MAX_PAIRS \
             else len(banks_per_q)
-        t0 = time.perf_counter()
-        devs = [self._batched_match_dev(q_feats_dev[s0:s0 + per_chunk],
-                                        banks_per_q[s0:s0 + per_chunk], d)
-                for s0 in range(0, len(banks_per_q), per_chunk)]
-        t0 = self._tick(stats, "match_dispatch_s", t0)
+        with span("engine.batched_match.dispatch"):
+            devs = [self._batched_match_dev(q_feats_dev[s0:s0 + per_chunk],
+                                            banks_per_q[s0:s0 + per_chunk], d)
+                    for s0 in range(0, len(banks_per_q), per_chunk)]
         out = np.full((len(banks_per_q), d, k), -1, np.int64)
-        s0, nbytes = 0, 0
-        for dev, nq in devs:
-            sub = dev.cpu().numpy()
-            nbytes += sub.nbytes
-            out[s0:s0 + nq] = sub[: nq * d].reshape(nq, d, k)
-            s0 += nq
-        self._tick(stats, "match_fetch_s", t0)
-        if stats is not None:
-            stats["match_fetch_mb"] = stats.get("match_fetch_mb", 0.0) + nbytes / 1e6
+        with span("engine.batched_match.fetch") as fetch:
+            s0, nbytes = 0, 0
+            for dev, nq in devs:
+                sub = dev.cpu().numpy()
+                nbytes += sub.nbytes
+                out[s0:s0 + nq] = sub[: nq * d].reshape(nq, d, k)
+                s0 += nq
+            fetch.set(mb=nbytes / 1e6)
         return out
 
     def _batched_match_dev(self, q_feats_dev, banks_per_q, d):
@@ -625,22 +630,20 @@ class LocalizationEngine:
         m, _ = self._matcher(*args)
         return m.to(torch.int16 if k < 32768 else torch.int32), len(banks_per_q)
 
-    def _batched_pnp(self, items: List[tuple], thresh: float, seed_base: int,
-                     stats: Optional[Dict[str, float]] = None):
+    def _batched_pnp(self, items: List[tuple], thresh: float, seed_base: int):
         """items [(mkpq, mp3d, cam8)] → one PnP-RANSAC program for all of
         them, padded to a bucket of queries; query i's generator is seeded
         ``fold_seed(seed_base, i)``. Returns [(qvec, tvec, inliers, num,
         success)] per item."""
-        t0 = time.perf_counter()
         qp = _bucket(len(items))
-        dev = self._pnp_batch(items, thresh, [fold_seed(seed_base, i) for i in range(qp)])
-        t0 = self._tick(stats, "pnp_dispatch_s", t0)
-        out = dev.cpu().numpy()  # [qp, 9 + n_pad]
-        self._tick(stats, "pnp_fetch_s", t0)
+        with span("engine.batched_pnp.dispatch"):
+            dev = self._pnp_batch(items, thresh, [fold_seed(seed_base, i) for i in range(qp)])
+        with span("engine.batched_pnp.fetch"):
+            out = dev.cpu().numpy()  # [qp, 9 + n_pad]
         return [self._unpack_pnp(out[i], len(it[0])) for i, it in enumerate(items)]
 
-    def localize_throughput(self, jobs: Sequence[Tuple[str, tuple, Sequence[Sequence[int]]]],
-                            stats: Optional[Dict[str, float]] = None) -> List[QueryResult]:
+    def localize_throughput(self, jobs: Sequence[Tuple[str, tuple, Sequence[Sequence[int]]]]
+                            ) -> List[QueryResult]:
         """Batched-across-queries localization: the gates and fallbacks of
         ``localize``, but every device stage (matching, PnP-RANSAC, the
         refinement) runs once for all still active queries. Cluster rounds
@@ -650,7 +653,6 @@ class LocalizationEngine:
         Hypotheses are drawn per query from ``fold_seed`` generators, so
         poses agree with ``localize``'s to RANSAC's noise, not bit for bit."""
         cfg = self.cfg
-        t0 = time.perf_counter()
         state = []
         for qname, qinfo, clusters in jobs:
             model, _, _, params = qinfo
@@ -660,7 +662,6 @@ class LocalizationEngine:
                           "clusters": [c for c in clusters if c], "log": "",
                           "best": {"num_inliers": 0, "qvec": None, "tvec": None, "db_id": None},
                           "result": None, "refine": None})
-        self._tick(stats, "setup_s", t0)
 
         for ci in range(max((len(s["clusters"]) for s in state), default=0)):
             active = [s for s in state if s["result"] is None and s["refine"] is None
@@ -668,8 +669,7 @@ class LocalizationEngine:
             if not active:
                 break
             matches = self._batched_match([s["q_dev"] for s in active],
-                                          [s["clusters"][ci] for s in active], stats=stats)
-            t0 = time.perf_counter()
+                                          [s["clusters"][ci] for s in active])
             pnp_items, pnp_ctx = [], []
             for s, m in zip(active, matches):
                 cluster = s["clusters"][ci]
@@ -680,11 +680,9 @@ class LocalizationEngine:
                     continue
                 pnp_items.append((mkpq, mp3d, s["cam8"]))
                 pnp_ctx.append((s, per_db, p3d_rows, q_ids, cluster))
-            self._tick(stats, "assemble_s", t0)
             if not pnp_items:
                 continue
-            results = self._batched_pnp(pnp_items, cfg.ransac_thresh, seed_base=1000 + ci,
-                                        stats=stats)
+            results = self._batched_pnp(pnp_items, cfg.ransac_thresh, seed_base=1000 + ci)
             for (s, per_db, p3d_rows, q_ids, cluster), (qv, tv, inliers, num, success) in zip(
                     pnp_ctx, results):
                 if not success:
@@ -717,24 +715,21 @@ class LocalizationEngine:
 
         pool = [s for s in state if s["refine"] is not None]
         if cfg.do_covisibility_opt and "clu" in cfg.opt_type and pool:
-            self._refine_pool(pool, stats=stats)
+            self._refine_pool(pool)
         for s in pool:
             if s["result"] is None:  # refinement opted out / kept the pose
                 _, qv, tv, src = s["refine"]
                 s["result"] = QueryResult(qv, tv, s["best"]["num_inliers"], s["log"], source=src)
         return [s["result"] for s in state]
 
-    def _refine_pool(self, pool: List[dict], stats: Optional[Dict[str, float]] = None) -> None:
+    def _refine_pool(self, pool: List[dict]) -> None:
         """``pose_refinement_covisibility`` for a pool of accepted queries,
         each stage once for the pool (matcher → PnP → iterative LM)."""
         cfg = self.cfg
-        t0 = time.perf_counter()
         banks = [list(_covis_frames(self.map, cfg, s["refine"][0], s["refine"][1],
                                     s["refine"][2])) for s in pool]
-        self._tick(stats, "covis_s", t0)
-        matches = self._batched_match([s["q_dev"] for s in pool], banks, stats=stats)
+        matches = self._batched_match([s["q_dev"] for s in pool], banks)
 
-        t0 = time.perf_counter()
         pnp_items, ctx = [], []
         for s, m, ids in zip(pool, matches, banks):
             _, qv, tv, src = s["refine"]
@@ -748,10 +743,9 @@ class LocalizationEngine:
                 continue
             pnp_items.append((mkpq, mp3d, s["cam8"]))
             ctx.append((s, mkpq, mp3d, src))
-        self._tick(stats, "assemble_s", t0)
         if not pnp_items:
             return
-        results = self._batched_pnp(pnp_items, cfg.opt_thresh, seed_base=77, stats=stats)
+        results = self._batched_pnp(pnp_items, cfg.opt_thresh, seed_base=77)
 
         lm_items, lm_ctx = [], []
         for (s, mkpq, mp3d, src), (qv, tv, inl, num, success) in zip(ctx, results):
@@ -768,9 +762,7 @@ class LocalizationEngine:
                 s["result"] = QueryResult(qv, tv, num, s["log"], source=src)
         if not lm_items:
             return
-        t0 = time.perf_counter()
         out = self._refine_batch(lm_items, _bucket(len(lm_items)))
-        self._tick(stats, "lm_s", t0)
         for row, (qv, tv, *_), (s, num, src) in zip(out, lm_items, lm_ctx):
             qv, tv, num, rlog = self._apply_refine(row, qv, tv, num)
             s["result"] = QueryResult(qv, tv, num, s["log"] + rlog, source=src)

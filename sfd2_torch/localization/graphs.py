@@ -31,6 +31,12 @@ static buffers and the shared pool are never used by two calls at once:
 ``localize_many``'s workers and the server's request threads replay the
 same graphs in turn, and a capture (``capture_error_mode="thread_local"``)
 is not disturbed by another thread's kernels, which run on other streams.
+
+Each ``run`` is a span ``graphs.run`` (tag ``captured``: the graphs this
+call captured), each eager segment a span ``graphs.eager``, and a wait for
+the lock a span ``graphs.lock_wait``; the counters ``graphs.captures``,
+``graphs.replays`` and ``graphs.capture_ns`` (the host time of warm-up and
+capture) run for the life of the process (``utils/profiling.py``).
 """
 
 from __future__ import annotations
@@ -40,6 +46,8 @@ import time
 from typing import Callable, NamedTuple, Tuple
 
 import torch
+
+from sfd2_torch.utils.profiling import count, span, waited
 
 
 class Program(NamedTuple):
@@ -54,8 +62,12 @@ class Program(NamedTuple):
 def run_eager(program: Program) -> torch.Tensor:
     """Every segment eagerly on the inputs' device; the packed result."""
     state = ()
-    for _, fn in program.segments:
-        state = fn(program.inputs, state)
+    for captured, fn in program.segments:
+        if captured:
+            state = fn(program.inputs, state)
+        else:
+            with span("graphs.eager"):
+                state = fn(program.inputs, state)
     return state[0]
 
 
@@ -107,7 +119,8 @@ class _Captured:
                 graph.replay()
                 state = out
             else:
-                state = fn(self.inputs, state)
+                with span("graphs.eager"):
+                    state = fn(self.inputs, state)
         return state[0].clone()
 
 
@@ -115,10 +128,6 @@ _lock = threading.Lock()
 _programs: dict = {}  # key → _Captured
 _streams: dict = {}  # device index → side stream of every capture and replay
 _pools: dict = {}  # device index → the memory pool all graphs share
-
-# Since the caller last set them to 0: graphs captured, graphs replayed, and
-# the host seconds of warm-up and capture.
-stats = {"captures": 0, "replays": 0, "capture_s": 0.0}
 
 
 def program_key(program: Program) -> tuple:
@@ -135,31 +144,33 @@ def captured_keys() -> list:
 def run(program: Program) -> torch.Tensor:
     """The program's packed result: eagerly on CPU tensors, replayed from
     its CUDA graphs (captured on the key's first call) on CUDA tensors."""
-    dev = program.inputs[0].device
-    if dev.type == "cpu":
-        return run_eager(program)
-    if dev.type != "cuda":
-        raise ValueError(f"localization programs run on cuda or cpu tensors, not {dev}")
-    key = program_key(program)
-    n_graphs = sum(captured for captured, _ in program.segments)
-    with _lock, torch.cuda.device(dev):
-        caller = torch.cuda.current_stream(dev)
-        if dev.index not in _streams:
-            _streams[dev.index] = torch.cuda.Stream(dev)
-            _pools[dev.index] = torch.cuda.graph_pool_handle()
-        side = _streams[dev.index]
-        side.wait_stream(caller)
-        with torch.cuda.stream(side):
-            prog = _programs.get(key)
-            if prog is None:
-                t0 = time.perf_counter()
-                prog = _Captured(program, _pools[dev.index])
-                side.synchronize()
-                stats["capture_s"] += time.perf_counter() - t0
-                stats["captures"] += n_graphs
-                _programs[key] = prog
-            out = prog.replay(program)
-            stats["replays"] += n_graphs
-        caller.wait_stream(side)
-        out.record_stream(caller)
-    return out
+    with span("graphs.run", captured=0) as run_span:
+        dev = program.inputs[0].device
+        if dev.type == "cpu":
+            return run_eager(program)
+        if dev.type != "cuda":
+            raise ValueError(f"localization programs run on cuda or cpu tensors, not {dev}")
+        key = program_key(program)
+        n_graphs = sum(captured for captured, _ in program.segments)
+        with waited(_lock, "graphs.lock_wait"), torch.cuda.device(dev):
+            caller = torch.cuda.current_stream(dev)
+            if dev.index not in _streams:
+                _streams[dev.index] = torch.cuda.Stream(dev)
+                _pools[dev.index] = torch.cuda.graph_pool_handle()
+            side = _streams[dev.index]
+            side.wait_stream(caller)
+            with torch.cuda.stream(side):
+                prog = _programs.get(key)
+                if prog is None:
+                    t0 = time.perf_counter_ns()
+                    prog = _Captured(program, _pools[dev.index])
+                    side.synchronize()
+                    count("graphs.capture_ns", time.perf_counter_ns() - t0)
+                    count("graphs.captures", n_graphs)
+                    run_span.set(captured=n_graphs)
+                    _programs[key] = prog
+                out = prog.replay(program)
+                count("graphs.replays", n_graphs)
+            caller.wait_stream(side)
+            out.record_stream(caller)
+        return out

@@ -17,6 +17,13 @@ mesh's ``data`` axis, padded with empty images to whole shares: every
 device holds a replica of the model and the stem's weights, runs its
 share (kernel K1 on CUDA) and returns its own packed result.
 
+Spans (``utils/profiling.py``): ``extract.batch`` per ``extract_batch``
+(tag ``images``), and under it, per scale, ``extract.round`` (the host's
+rounding of numpy images into the padded uint8 batch), ``extract.upload``
+(that batch's copy to the device), ``extract.launch`` (the host's enqueue
+of normalisation, K1, the trunk and keypoint selection) and
+``extract.fetch`` (the packed result's copy back).
+
 Differences from the JAX pipeline: buckets are rounded to
 ``pad_multiple`` only (the W%256 / H%16 rounding existed for the TPU
 stem kernel); the stem always runs fused.
@@ -40,6 +47,7 @@ from sfd2_torch.ops.resize import resize_bilinear
 from sfd2_torch.ops.stem import repack_stem_params
 from sfd2_torch.parallel.mesh import put_batch, put_replicated, shard_batch
 from sfd2_torch.utils.device import resolve_device
+from sfd2_torch.utils.profiling import span
 
 # ImageNet normalisation (``nets/extractor.py:14-15``).
 _RGB_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
@@ -201,12 +209,14 @@ class Extractor:
         hp, wp = self._pad_hw(max(im.shape[0] for im in images),
                               max(im.shape[1] for im in images))
         if any(isinstance(im, np.ndarray) for im in images):
-            host = np.zeros((len(images), hp, wp, 3), np.uint8)
-            for i, im in enumerate(images):
-                if isinstance(im, np.ndarray):
-                    host[i, : im.shape[0], : im.shape[1]] = np.clip(
-                        np.rint(im * 255.0), 0, 255).astype(np.uint8)
-            batch = torch.from_numpy(host).to(self.device)
+            with span("extract.round"):
+                host = np.zeros((len(images), hp, wp, 3), np.uint8)
+                for i, im in enumerate(images):
+                    if isinstance(im, np.ndarray):
+                        host[i, : im.shape[0], : im.shape[1]] = np.clip(
+                            np.rint(im * 255.0), 0, 255).astype(np.uint8)
+            with span("extract.upload"):
+                batch = torch.from_numpy(host).to(self.device)
         else:
             batch = torch.zeros((len(images), hp, wp, 3), dtype=torch.uint8, device=self.device)
         for i, im in enumerate(images):
@@ -246,7 +256,10 @@ class Extractor:
         batch is padded with empty 1×1 images to whole shares, each device
         runs its share, and the padding is dropped."""
         if self.mesh is None:
-            return self._run(images_u8, sizes, label_map).cpu().numpy()
+            with span("extract.launch"):
+                packed = self._run(images_u8, sizes, label_map)
+            with span("extract.fetch"):
+                return packed.cpu().numpy()
         b = images_u8.shape[0]
         n = len(self._replicas)
         pad = -(-b // n) * n - b
@@ -257,8 +270,10 @@ class Extractor:
                 label_map = torch.cat([label_map,
                                        label_map.new_zeros((pad, *label_map.shape[1:]))])
         shares = put_batch(self.mesh, (images_u8, sizes, label_map))
-        packed = [self._run(*share, replica=rep) for share, rep in zip(shares, self._replicas)]
-        return np.concatenate([p.cpu().numpy() for p in packed])[:b]
+        with span("extract.launch"):
+            packed = [self._run(*share, replica=rep) for share, rep in zip(shares, self._replicas)]
+        with span("extract.fetch"):
+            return np.concatenate([p.cpu().numpy() for p in packed])[:b]
 
     def extract_batch(self, images: Sequence[np.ndarray],
                       label_maps: Sequence[np.ndarray] | None = None) -> List[ImageFeatures]:
@@ -270,71 +285,72 @@ class Extractor:
         ``max_keypoints``. `label_maps`: per-image int32 [H, W] id maps (any
         resolution, nearest-resized per scale): labelled-first top-K and
         merge, and per-keypoint ``labels``."""
-        cfg = self.cfg
-        with_labels = label_maps is not None
-        if cfg.scales == "auto":
-            scales, active = auto_scales([min(im.shape[0], im.shape[1]) for im in images])
-        else:
-            scales, active = cfg.scales, [[True] * len(images)] * len(cfg.scales)
-        # An image below its auto-pyramid depth takes a 1×1 dummy: it never
-        # widens the padded batch, its size border-masks every keypoint, and
-        # it is skipped below.
-        dummy = np.zeros((1, 1, 3), np.float32)
-        on_device: Dict[int, torch.Tensor] = {}
-        parts: List[List[tuple]] = [[] for _ in images]
-        for s, act in zip(scales, active):
-            scaled = []
-            for i, (im, a) in enumerate(zip(images, act)):
-                if not a:
-                    scaled.append(dummy)
-                elif s == 1.0:
-                    scaled.append(im)
-                else:
-                    if i not in on_device:
-                        on_device[i] = torch.from_numpy(
-                            np.ascontiguousarray(im, np.float32)).to(self.device)
-                    scaled.append(resize_bilinear(on_device[i], (int(im.shape[0] * s),
-                                                                 int(im.shape[1] * s))))
-            batch, (hp, wp) = self._pad_batch(scaled)
-            sizes = torch.tensor([[im.shape[1], im.shape[0]] for im in scaled],
-                                 dtype=torch.int32, device=self.device)
-            lbl = None
-            if with_labels:
-                lbl_np = np.zeros((len(scaled), hp, wp), np.int32)
-                for i, im in enumerate(scaled):
-                    lbl_np[i, : im.shape[0], : im.shape[1]] = _resize_labels_nearest(
-                        label_maps[i], im.shape[:2])
-                lbl = torch.from_numpy(lbl_np).to(self.device)
-            packed = self._run_packed(batch, sizes, lbl)  # one fetch per batch and device
-            c = packed.shape[-1] - (5 if with_labels else 4)
-            for i, im in enumerate(images):
-                if not act[i]:
-                    continue
-                sh, sw = scaled[i].shape[:2]
-                xy = packed[i, :, 0:2]
-                v = (packed[i, :, 3 + c] > 0.5) & (xy[:, 0] < sw) & (xy[:, 1] < sh)
-                pts = xy[v]
-                if s != 1.0:
-                    # Back to the input resolution (the reference multiplies
-                    # by W/nw, nets/extractor.py:214-215).
-                    pts = pts * np.array([im.shape[1] / sw, im.shape[0] / sh], np.float32)
-                parts[i].append((pts, packed[i, :, 3:3 + c][v], packed[i, :, 2][v],
-                                 packed[i, :, 4 + c][v].astype(np.int32) if with_labels else None))
-
-        out = []
-        for i, im in enumerate(images):
-            kp, de, sc = (np.concatenate([p[j] for p in parts[i]]) for j in range(3))
-            lb = np.concatenate([p[3] for p in parts[i]]) if with_labels else None
-            if lb is not None:
-                # The cross-scale merge keeps the labelled-first invariant.
-                boost = (sc.max() + 1.0) if sc.size else 1.0
-                order = np.argsort(-(sc + boost * (lb > 0)))[: cfg.max_keypoints]
+        with span("extract.batch", images=len(images)):
+            cfg = self.cfg
+            with_labels = label_maps is not None
+            if cfg.scales == "auto":
+                scales, active = auto_scales([min(im.shape[0], im.shape[1]) for im in images])
             else:
-                order = np.argsort(-sc)[: cfg.max_keypoints]
-            out.append(ImageFeatures(kp[order], de[order], sc[order],
-                                     np.array([im.shape[1], im.shape[0]]),
-                                     lb[order] if lb is not None else None))
-        return out
+                scales, active = cfg.scales, [[True] * len(images)] * len(cfg.scales)
+            # An image below its auto-pyramid depth takes a 1×1 dummy: it never
+            # widens the padded batch, its size border-masks every keypoint, and
+            # it is skipped below.
+            dummy = np.zeros((1, 1, 3), np.float32)
+            on_device: Dict[int, torch.Tensor] = {}
+            parts: List[List[tuple]] = [[] for _ in images]
+            for s, act in zip(scales, active):
+                scaled = []
+                for i, (im, a) in enumerate(zip(images, act)):
+                    if not a:
+                        scaled.append(dummy)
+                    elif s == 1.0:
+                        scaled.append(im)
+                    else:
+                        if i not in on_device:
+                            on_device[i] = torch.from_numpy(
+                                np.ascontiguousarray(im, np.float32)).to(self.device)
+                        scaled.append(resize_bilinear(on_device[i], (int(im.shape[0] * s),
+                                                                     int(im.shape[1] * s))))
+                batch, (hp, wp) = self._pad_batch(scaled)
+                sizes = torch.tensor([[im.shape[1], im.shape[0]] for im in scaled],
+                                     dtype=torch.int32, device=self.device)
+                lbl = None
+                if with_labels:
+                    lbl_np = np.zeros((len(scaled), hp, wp), np.int32)
+                    for i, im in enumerate(scaled):
+                        lbl_np[i, : im.shape[0], : im.shape[1]] = _resize_labels_nearest(
+                            label_maps[i], im.shape[:2])
+                    lbl = torch.from_numpy(lbl_np).to(self.device)
+                packed = self._run_packed(batch, sizes, lbl)  # one fetch per batch and device
+                c = packed.shape[-1] - (5 if with_labels else 4)
+                for i, im in enumerate(images):
+                    if not act[i]:
+                        continue
+                    sh, sw = scaled[i].shape[:2]
+                    xy = packed[i, :, 0:2]
+                    v = (packed[i, :, 3 + c] > 0.5) & (xy[:, 0] < sw) & (xy[:, 1] < sh)
+                    pts = xy[v]
+                    if s != 1.0:
+                        # Back to the input resolution (the reference multiplies
+                        # by W/nw, nets/extractor.py:214-215).
+                        pts = pts * np.array([im.shape[1] / sw, im.shape[0] / sh], np.float32)
+                    lb = packed[i, :, 4 + c][v].astype(np.int32) if with_labels else None
+                    parts[i].append((pts, packed[i, :, 3:3 + c][v], packed[i, :, 2][v], lb))
+
+            out = []
+            for i, im in enumerate(images):
+                kp, de, sc = (np.concatenate([p[j] for p in parts[i]]) for j in range(3))
+                lb = np.concatenate([p[3] for p in parts[i]]) if with_labels else None
+                if lb is not None:
+                    # The cross-scale merge keeps the labelled-first invariant.
+                    boost = (sc.max() + 1.0) if sc.size else 1.0
+                    order = np.argsort(-(sc + boost * (lb > 0)))[: cfg.max_keypoints]
+                else:
+                    order = np.argsort(-sc)[: cfg.max_keypoints]
+                out.append(ImageFeatures(kp[order], de[order], sc[order],
+                                         np.array([im.shape[1], im.shape[0]]),
+                                         lb[order] if lb is not None else None))
+            return out
 
     def _probe_bucket(self, path) -> Tuple[int, int]:
         """Padded bucket an image lands in after load_image's resize, from a

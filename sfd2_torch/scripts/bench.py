@@ -97,11 +97,12 @@ from sfd2_torch.ops.gather import gather_rows_plain
 from sfd2_torch.ops.matching import mutual_nn_match, mutual_nn_ratio_match
 from sfd2_torch.ops.stem import PackedStem, fused_stem_apply, repack_stem_params
 from sfd2_torch.pipeline.extract import ExtractionConfig, Extractor
-from sfd2_torch.sfm.ba import BAProblem, bundle_adjust, capture_iteration, lm_result, lm_setup
+from sfd2_torch.sfm.ba import BAProblem, capture_iteration, lm_result, lm_setup
 from sfd2_torch.sfm.triangulation import triangulate_tracks
 from sfd2_torch.sfm.twoview import verify_fundamental_ransac
 from sfd2_torch.utils.benchtime import cuda_fence, measure_rtt, timed_per_item
 from sfd2_torch.utils.device import resolve_device
+from sfd2_torch.utils.profiling import counter, recording
 from sfd2_torch.utils.synth import build_corridor_scene
 
 METRIC = "localization_pipeline_frames_per_s_per_chip"
@@ -703,7 +704,7 @@ def run_bench(shared: dict, device="cuda", quick: bool = False, n_passes: int = 
     shared["result"] = _compose(shared)
 
     def captures():  # the localization programs' graphs and BA's
-        return graphs.stats["captures"] + bundle_adjust.graph_captures
+        return counter("graphs.captures") + counter("ba.captures")
 
     before = captures()
     by_pass = shared.setdefault("times_by_pass", [])
@@ -808,6 +809,26 @@ def kernel_exactness(shared: dict, device) -> None:
         and deltas["stem_rel"] <= 1e-4)
 
 
+# localize_throughput's phases: breakdown key → the span that times it.
+BATCHED_PHASES = {"assemble_ms": "engine.assemble", "covis_ms": "engine.frames",
+                  "lm_ms": "engine.refine", "match_dispatch_ms": "engine.batched_match.dispatch",
+                  "match_fetch_ms": "engine.batched_match.fetch",
+                  "pnp_dispatch_ms": "engine.batched_pnp.dispatch",
+                  "pnp_fetch_ms": "engine.batched_pnp.fetch", "setup_ms": "engine.query_feats"}
+
+
+def batched_breakdown(records: list, wall_s: float) -> dict:
+    """Milliseconds of each of ``localize_throughput``'s phases in the
+    records of one call, the megabytes its matches fetched, and the rest of
+    its wall time (``other_ms``)."""
+    out = {k: sum(r.t1 - r.t0 for r in records if r.name == name) / 1e6
+           for k, name in BATCHED_PHASES.items()}
+    out["match_fetch_mb"] = sum(r.tags["mb"] for r in records
+                                if r.name == "engine.batched_match.fetch")
+    out["other_ms"] = wall_s * 1e3 - sum(out[k] for k in BATCHED_PHASES)
+    return out
+
+
 def _recall(results, queries) -> tuple:
     errs = np.array([pose_error(r.qvec, r.tvec, q_gt, t_gt)
                      for r, (_, q_gt, t_gt, _) in zip(results, queries)])
@@ -838,7 +859,7 @@ def e2e_localize(shared: dict, device, quick: bool) -> None:
     store = FeatureStore()
     scene = build_corridor_scene(store, n_images=n_img, n_queries=n_q, seed=7, **scene_kw)
     eng = LocalizationEngine(scene.map_index, store, cfg, device=dev)
-    g0 = dict(graphs.stats)
+    g0 = counter("graphs.captures")
     per_q, seq = [], []
     for i, (qname, _, _, near) in enumerate(scene.queries):
         t0 = time.perf_counter()
@@ -864,20 +885,16 @@ def e2e_localize(shared: dict, device, quick: bool) -> None:
     shared["e2e_qps_pipelined"] = round(pip_qps, 2)
     shared["result"] = _compose(shared)
     eng.localize_throughput(jobs)  # warm: the batched shapes' graphs
-    g1 = dict(graphs.stats)
-    bstats: dict = {}
-    t0 = time.perf_counter()
-    results_b = eng.localize_throughput(jobs, stats=bstats)
-    wall_b = time.perf_counter() - t0
+    g1 = counter("graphs.captures")
+    with recording() as recs:
+        t0 = time.perf_counter()
+        results_b = eng.localize_throughput(jobs)
+        wall_b = time.perf_counter() - t0
     bat_qps = len(jobs) / wall_b
     shared["e2e_qps_batched"] = round(bat_qps, 2)
-    acc = sum(v for k, v in bstats.items() if k.endswith("_s"))
     shared["e2e_batched_breakdown"] = {
-        **{k[:-2] + "_ms": round(v * 1e3, 1) for k, v in sorted(bstats.items())
-           if k.endswith("_s")},
-        "match_fetch_mb": round(bstats.get("match_fetch_mb", 0.0), 2),
-        "other_ms": round((wall_b - acc) * 1e3, 1),
-    }
+        k: round(v, 2 if k == "match_fetch_mb" else 1)
+        for k, v in batched_breakdown(recs, wall_b).items()}
     shared["e2e_pipeline_speedup"] = round(max(pip_qps, bat_qps) / seq_qps, 2) if seq_qps else 0.0
     acc_p = sum(r.source == "accepted" for r in results_p)
     acc_b = sum(r.source == "accepted" for r in results_b)
@@ -885,8 +902,8 @@ def e2e_localize(shared: dict, device, quick: bool) -> None:
     shared["e2e_accept_batched"] = f"{acc_b}/{len(jobs)}"
     qe_b, te_b = _recall(results_b, scene.queries)
     shared["e2e_recall_batched"] = round(float(np.mean((te_b < 0.25) & (qe_b < 2.0))), 3)
-    shared["e2e_graphs"] = dict(captures_sequential_and_pipelined=g1["captures"] - g0["captures"],
-                                captures_timed_batched=graphs.stats["captures"] - g1["captures"])
+    shared["e2e_graphs"] = dict(captures_sequential_and_pipelined=g1 - g0,
+                                captures_timed_batched=counter("graphs.captures") - g1)
     shared["e2e_note"] = (
         f"median wall-clock over {len(per_q)} queries ({n_img}-img map"
         f"{', PRODUCTION 4096kp/50-frame shapes' if production else ''}, "

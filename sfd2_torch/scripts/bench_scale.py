@@ -63,6 +63,7 @@ from sfd2_torch.localization.ransac import fold_seed
 from sfd2_torch.ops.cuda_gather import gather_rows_cuda
 from sfd2_torch.ops.cuda_match import mutual_nn_match_cuda
 from sfd2_torch.ops.matching import batch_matcher
+from sfd2_torch.scripts.bench import BATCHED_PHASES, batched_breakdown
 from sfd2_torch.sfm.ba import BAProblem, bundle_adjust
 from sfd2_torch.sfm.map_index import MapIndex
 from sfd2_torch.sfm.pairs import pairs_from_poses
@@ -70,6 +71,7 @@ from sfd2_torch.sfm.tracks import build_tracks_arrays
 from sfd2_torch.sfm.triangulation import triangulate_tracks
 from sfd2_torch.sfm.twoview import verify_fundamental_ransac
 from sfd2_torch.utils.device import resolve_device
+from sfd2_torch.utils.profiling import counter, recording
 
 NOISE_PX = 0.4  # keypoint noise, pixels
 DESC_NOISE = 0.05  # descriptor noise before renormalising
@@ -507,16 +509,24 @@ def retrieval(cfg: ScaleConfig, q_x: np.ndarray) -> np.ndarray:
     return np.argsort(np.abs(pos - q_x[:, None]), axis=1)[:, :cfg.topq] + 1
 
 
+def phase_seconds(records: list, seconds: float) -> dict:
+    """``batched_breakdown`` in seconds, keys ``<phase>_s``, with the
+    fetched megabytes (``match_fetch_mb``)."""
+    out = batched_breakdown(records, seconds)
+    return {**{k[:-3] + "_s": out[k] / 1e3 for k in BATCHED_PHASES},
+            "match_fetch_mb": out["match_fetch_mb"]}
+
+
 def localize_stage(cfg: ScaleConfig, engine: LocalizationEngine, scene: Scene) -> dict:
     """``localize_throughput`` of every query against its retrieved DB
     images as singleton clusters; recall against the ground truth."""
     qinfo = ("PINHOLE", cfg.width, cfg.height, np.asarray(cfg.cam_params))
     retr = retrieval(cfg, scene.q_x)
     jobs = [(query_name(qi), qinfo, [[int(j)] for j in retr[qi]]) for qi in range(cfg.n_q)]
-    stats: dict = {}
-    t0 = time.perf_counter()
-    results = engine.localize_throughput(jobs, stats=stats)
-    seconds = time.perf_counter() - t0
+    with recording() as recs:
+        t0 = time.perf_counter()
+        results = engine.localize_throughput(jobs)
+        seconds = time.perf_counter() - t0
     errs = np.array([pose_error(r.qvec, r.tvec, scene.q_q[i], scene.q_t[i])
                      for i, r in enumerate(results)]).reshape(-1, 2)
     q_errs, t_errs = errs[:, 0], errs[:, 1]
@@ -525,7 +535,7 @@ def localize_stage(cfg: ScaleConfig, engine: LocalizationEngine, scene: Scene) -
                 recall_025m_2deg=float(np.mean((t_errs < 0.25) & (q_errs < 2.0))),
                 recall_05m_5deg=float(np.mean((t_errs < 0.5) & (q_errs < 5.0))),
                 med_terr_m=float(np.median(t_errs)), med_rerr_deg=float(np.median(q_errs)),
-                localize_phase_s=stats)
+                localize_phase_s=phase_seconds(recs, seconds))
 
 
 # ---------------------------------------------------------------------------
@@ -615,17 +625,16 @@ def run(cfg: ScaleConfig, device="cuda", out: Optional[Path] = None,
         c.update(n_points_final=int(len(arrays["point_xyz"])),
                  n_obs_final=int(len(arrays["f_img"])))
     with rec.stage("ba") as c:
-        captures, replays, capture_s = (bundle_adjust.graph_captures, bundle_adjust.graph_replays,
-                                        bundle_adjust.capture_s)
+        before = {k: counter(f"ba.{k}") for k in ("captures", "replays", "capture_ns")}
         t0 = time.perf_counter()
         problem, upts, window = ba_problem(cfg, rng, arrays, scene.xy, scene.db_q, scene.db_t)
         problem_s = time.perf_counter() - t0
         point_xyz, db_q_ba, db_t_ba, counts = ba_stage(cfg, problem, upts, arrays["point_xyz"])
         del problem
         c.update(window, **counts, ba_problem_s=problem_s,
-                 ba_graph_captures=bundle_adjust.graph_captures - captures,
-                 ba_graph_replays=bundle_adjust.graph_replays - replays,
-                 ba_capture_s=bundle_adjust.capture_s - capture_s)
+                 ba_graph_captures=counter("ba.captures") - before["captures"],
+                 ba_graph_replays=counter("ba.replays") - before["replays"],
+                 ba_capture_s=(counter("ba.capture_ns") - before["capture_ns"]) / 1e9)
     with rec.stage("map_index"):
         map_index = map_index_stage(cfg, arrays, point_xyz, db_q_ba, db_t_ba)
     with contextlib.ExitStack() as stack:

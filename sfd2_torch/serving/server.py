@@ -26,6 +26,9 @@ configured retrieval size (``covisibility_frame`` singleton frames), which
 uploads those frames' banks, and captures the PnP and refinement graphs of
 every correspondence bucket a query of up to 2 × ``max_keypoints``
 correspondences takes: a request then replays graphs and captures none.
+
+Each POST is a ``request()`` of ``utils/profiling.py`` under a span
+``serve.request``; a wait for the gate is a span ``service.gate_wait``.
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ import numpy as np
 from sfd2_torch.io.feature_store import FeatureStore
 from sfd2_torch.localization.engine import LocalizationEngine, LocalizerConfig
 from sfd2_torch.sfm.map_index import MapIndex
+from sfd2_torch.utils import profiling
 
 log = logging.getLogger(__name__)
 
@@ -69,7 +73,7 @@ class LocalizationService:
         db_ids = self.resolve_db_ids(body)
         clusters = [db_ids] if body.get("cluster_mode") == "one" else [[i] for i in db_ids]
         t0 = time.perf_counter()
-        with self._gate:
+        with profiling.waited(self._gate, "service.gate_wait"):
             res = self.engine.localize(body["query_name"], qinfo, clusters)
         return {"qvec": [float(v) for v in res.qvec], "tvec": [float(v) for v in res.tvec],
                 "num_inliers": int(res.num_inliers), "source": res.source,
@@ -134,6 +138,10 @@ def make_server(service: LocalizationService, host: str = "127.0.0.1",
                 self._reply(404, {"error": f"unknown path {self.path}"})
 
         def do_POST(self):
+            with profiling.request(), profiling.span("serve.request"):
+                self._post()
+
+        def _post(self):
             if self.path != "/localize":
                 self._reply(404, {"error": f"unknown path {self.path}"})
                 return

@@ -49,6 +49,7 @@ from sfd2_torch.localization.pnp import _axis_angle_to_rotmat, _inv6_spd_lanes
 from sfd2_torch.ops.cuda_gather import (count_graph_replays, gather_rows_cuda,
                                         graph_capture_record)
 from sfd2_torch.sfm.triangulation import _inv3_lanes
+from sfd2_torch.utils.profiling import count
 
 
 class BAProblem(NamedTuple):
@@ -336,7 +337,7 @@ def capture_iteration(iterate, state: LMState, pool=None):
     stream, which a capture cannot create); `pool`: a memory pool to draw on."""
     static = LMState(*(t.clone() for t in state))
     graph = torch.cuda.CUDAGraph()
-    t0 = time.perf_counter()
+    t0 = time.perf_counter_ns()
     release_cache_for_capture(static.points.get_device())
     with graph_capture_record() as captured:
         graph.capture_begin(pool=pool)
@@ -345,8 +346,8 @@ def capture_iteration(iterate, state: LMState, pool=None):
                 dst.copy_(src)
         finally:
             graph.capture_end()
-    bundle_adjust.capture_s += time.perf_counter() - t0
-    bundle_adjust.graph_captures += 1
+    count("ba.capture_ns", time.perf_counter_ns() - t0)
+    count("ba.captures")
     return graph, static, captured
 
 
@@ -373,7 +374,7 @@ def _replay_in_graph(iterate, state: LMState, lm_iters: int) -> LMState:
             for _ in range(lm_iters - 1):
                 graph.replay()
             count_graph_replays(captured, lm_iters - 1)
-            bundle_adjust.graph_replays += lm_iters - 1
+            count("ba.replays", lm_iters - 1)
             side.synchronize()
             _graph_state[dev] = side, graph
     caller.wait_stream(side)
@@ -395,10 +396,3 @@ def bundle_adjust(problem: BAProblem, lm_iters: int = 10, cg_iters: int = 20,
         for _ in range(lm_iters):
             state = iterate(state)
     return lm_result(state)
-
-
-# Graph statistics since the caller last set them to 0: captures, replays
-# and the host seconds the captures took.
-bundle_adjust.graph_captures = 0
-bundle_adjust.graph_replays = 0
-bundle_adjust.capture_s = 0.0

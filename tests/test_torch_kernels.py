@@ -40,6 +40,7 @@ from sfd2_torch.ops.cuda_stem import StemWeights, fused_stem_cuda
 from sfd2_torch.ops.gather import gather_rows_plain
 from sfd2_torch.ops.matching import mutual_nn_match, mutual_nn_ratio_match, nn_argmax, nn_top2
 from sfd2_torch.ops.stem import fused_stem_apply, repack_stem_params
+from sfd2_torch.utils import profiling
 
 # The suite runs in several worker processes on a few cores: keep each
 # worker's intra-op thread pool small so workers do not oversubscribe them.
@@ -326,13 +327,13 @@ def test_bundle_adjust_graph_matches_eager_iteration_on_card(cuda_device, lm_ite
     from sfd2_torch.sfm import ba
 
     problem = _ba_problem(cuda_device, np.random.default_rng(0))
-    ba.bundle_adjust.graph_replays = ba.bundle_adjust.graph_captures = 0
+    replays, captures = profiling.counter("ba.replays"), profiling.counter("ba.captures")
     before = gather_rows_cuda.launches
     got = ba.bundle_adjust(problem, lm_iters=lm_iters, cg_iters=cg_iters)
     torch.cuda.synchronize()
     graph_launches = gather_rows_cuda.launches - before
-    assert ba.bundle_adjust.graph_replays == max(lm_iters - 1, 0)
-    assert ba.bundle_adjust.graph_captures == int(lm_iters >= 2)
+    assert profiling.counter("ba.replays") - replays == max(lm_iters - 1, 0)
+    assert profiling.counter("ba.captures") - captures == int(lm_iters >= 2)
     iterate, state = ba.lm_setup(problem, cg_iters=cg_iters)
     for _ in range(lm_iters):
         state = iterate(state)
@@ -623,15 +624,16 @@ def test_localization_graphs_captured_once_per_key_on_card(cuda_device):
     from sfd2_torch.localization.ransac import pnp_ransac_core, sample_minimal_sets
 
     rng = np.random.default_rng(2)
-    graphs.stats.update(captures=0, replays=0)
+    captures, replays = profiling.counter("graphs.captures"), profiling.counter("graphs.replays")
     for i, (n, thresh) in enumerate(((320, 4.0), (320, 6.0), (320, 3.0), (640, 4.0))):
         xy, pts, cams, valid, poses = _pnp_batch(cuda_device, rng, 2, n)
         gens = [torch.Generator(device=cuda_device).manual_seed(i * 10 + j) for j in range(2)]
         res = pnp_ransac_core(xy, pts, cams, valid, sample_minimal_sets(valid, 96, gens),
                               threshold=thresh)
         assert bool(res.success.all())
-        assert graphs.stats["captures"] == (3 if n == 320 else 6)  # 3 graph segments each
-        assert graphs.stats["replays"] == 3 * (i + 1)
+        # 3 graph segments each
+        assert profiling.counter("graphs.captures") - captures == (3 if n == 320 else 6)
+        assert profiling.counter("graphs.replays") - replays == 3 * (i + 1)
     keys = [k for k in graphs.captured_keys() if k[0][0] == "pnp"]
     assert len({k[2][0][0] for k in keys}) >= 2
 
@@ -665,10 +667,10 @@ def test_refine_pose_lm_runs_from_a_graph_on_card(cuda_device):
     q0 = torch.tensor(np.stack([q for q, _ in poses]), device=cuda_device)
     t0 = torch.tensor(np.stack([t for _, t in poses]), device=cuda_device) + 0.05
     args = (q0, t0, pts, xy, cams, valid.float())
-    before = graphs.stats["replays"]
+    before = profiling.counter("graphs.replays")
     q, t = refine_pose_lm(*args)
     torch.cuda.synchronize()
-    assert graphs.stats["replays"] == before + 1
+    assert profiling.counter("graphs.replays") == before + 1
     q_c, t_c = refine_pose_lm(*(a.cpu() for a in args))
     assert (q.cpu() - q_c).abs().max().item() <= 1e-4
     assert (t.cpu() - t_c).abs().max().item() <= 1e-4

@@ -25,6 +25,7 @@ from sfd2_torch.localization import graphs
 from sfd2_torch.localization import pnp as tpnp
 from sfd2_torch.localization.ransac import (fold_seed, pnp_ransac_core, pnp_ransac_program,
                                             sample_minimal_sets)
+from sfd2_torch.utils import profiling
 from sfd2_tpu.localization import engine as jengine
 
 torch.set_num_threads(2)
@@ -170,8 +171,13 @@ def test_program_eager_run_equals_graphs_run_on_cpu():
     t = [torch.from_numpy(a) for a in (xy, pts, cams, valid)]
     prog = pnp_ransac_program(*t, idx, 4.0)
     assert [c for c, _ in prog.segments] == [True, False, True, False, True]
-    assert torch.equal(graphs.run(prog), graphs.run_eager(prog))
-    assert graphs.stats["captures"] == 0  # nothing is captured on the CPU
+    captures = profiling.counter("graphs.captures")
+    with profiling.recording() as recs:
+        assert torch.equal(graphs.run(prog), graphs.run_eager(prog))
+    # Nothing is captured on the CPU; the two eager segments run as such.
+    assert profiling.counter("graphs.captures") == captures
+    assert [r.tags["captured"] for r in recs if r.name == "graphs.run"] == [0]
+    assert sum(r.name == "graphs.eager" for r in recs) == 4
 
 
 def _jax_hypotheses(valid, num_hypotheses, key):

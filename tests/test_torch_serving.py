@@ -29,6 +29,7 @@ from sfd2_torch.localization.engine import LocalizationEngine, LocalizerConfig
 from sfd2_torch.localization.graphs import program_key
 from sfd2_torch.serving import server as server_mod
 from sfd2_torch.serving.server import LocalizationService, make_server
+from sfd2_torch.utils import profiling
 from sfd2_torch.utils.synth import build_corridor_scene
 from sfd2_tpu.io.feature_store import FeatureStore as JFeatureStore
 from sfd2_tpu.localization import engine as jengine
@@ -195,13 +196,16 @@ def test_localize_throughput_matches_sequential(served_scene):
     eng = service.engine
     jobs = _jobs(scene)
     seq = [eng.localize(*j) for j in jobs]
-    stats = {}
-    bat = eng.localize_throughput(jobs, stats=stats)
+    with profiling.recording() as recs:
+        bat = eng.localize_throughput(jobs)
     assert len(bat) == len(seq)
-    for phase in ("setup_s", "match_dispatch_s", "match_fetch_s", "assemble_s",
-                  "pnp_dispatch_s", "pnp_fetch_s", "covis_s", "lm_s"):
-        assert phase in stats and stats[phase] >= 0.0, (phase, stats)
-    assert stats["match_fetch_mb"] > 0.0
+    names = {r.name for r in recs}
+    for phase in ("engine.query_feats", "engine.batched_match.dispatch",
+                  "engine.batched_match.fetch", "engine.assemble", "engine.batched_pnp.dispatch",
+                  "engine.batched_pnp.fetch", "engine.frames", "engine.refine"):
+        assert phase in names, (phase, names)
+    assert all(r.t1 >= r.t0 for r in recs)
+    assert sum(r.tags["mb"] for r in recs if r.name == "engine.batched_match.fetch") > 0.0
     for (qname, q_gt, t_gt, _), a, b in zip(scene.queries, seq, bat):
         assert a.source == b.source == "accepted", (qname, a.source, b.source)
         qe, te = pose_error(b.qvec, b.tvec, q_gt, t_gt)
@@ -234,9 +238,10 @@ def test_batched_match_chunking_matches_direct(served_scene):
     ids = [int(i) for i in list(scene.map_index.images)[:10]]
     banks = [ids * 3 for _ in range(5)]  # 5 queries × 30 banks = 150 > 128
     q_feats = [eng._query_feats(scene.queries[i % 3][0])[1:] for i in range(5)]
-    stats = {}
-    got = eng._batched_match(q_feats, banks, stats=stats)
-    assert got.shape == (5, 30, 512) and stats["match_fetch_mb"] > 0
+    with profiling.recording() as recs:
+        got = eng._batched_match(q_feats, banks)
+    fetched = [r.tags["mb"] for r in recs if r.name == "engine.batched_match.fetch"]
+    assert got.shape == (5, 30, 512) and len(fetched) == 1 and fetched[0] > 0
     for qi in range(5):
         ref = eng._match_query_to_dbs(q_feats[qi][0], q_feats[qi][1], banks[qi])
         np.testing.assert_array_equal(got[qi], ref)
@@ -403,9 +408,10 @@ def test_warmup_covers_a_request_of_the_retrieval_size(monkeypatch):
         return matcher(d0, *args)
 
     service.engine._matcher = recorded_matcher
+    misses = profiling.counter("engine.bank_misses")  # bank uploads from the store
     service.warmup()
     warm_programs, warm_frames = set(programs), set(frame_buckets)
-    uploads = service.engine.bank_uploads
+    uploads = profiling.counter("engine.bank_misses") - misses
     for qi in range(len(scene.queries)):
         qname, q_gt, t_gt, near = scene.queries[qi]
         assert len(near) == 50
@@ -417,7 +423,8 @@ def test_warmup_covers_a_request_of_the_retrieval_size(monkeypatch):
     assert 64 in warm_frames
     # The warm-up uploaded the banks of the frames a request near the
     # first image retrieves; later requests upload the rest once.
-    assert uploads >= 50 and service.engine.bank_uploads <= len(scene.map_index.images)
+    assert uploads >= 50
+    assert profiling.counter("engine.bank_misses") - misses <= len(scene.map_index.images)
 
 
 def test_warmup_without_a_frame_limit_localizes_against_four_frames():
