@@ -2,27 +2,33 @@
 
 Port of ``sfd2_tpu/pipeline/extract.py``: the named conf registry
 (``extract_localization.py:26-120``), cv2 BGR→RGB loading with
-INTER_CUBIC max-edge resize, bucketed static batch shapes, uint8 upload
-with normalisation on the device, the fused stem (kernel K1 on CUDA) →
-``forward_from_out1c`` → ``extract_keypoints``, and the reference's
-keypoint rescale ``(kp + 0.5) * scale − 0.5``. Multi-scale extraction
-(``extract.py:87-200``): a fixed scale tuple or the per-image ``auto``
-pyramid, each scale resized on the device (``ops/resize.py``), run as its
-own batch, and merged across scales on the host. Semantic label maps
-(``nets/extractor.py:240-326``) make the top-K labelled-first and give
-each keypoint its label.
+INTER_CUBIC max-edge resize, bucketed static batch shapes, the images
+quantised to uint8 and normalised on the device, the fused stem (kernel
+K1 on CUDA) → ``forward_from_out1c`` → ``extract_keypoints``, and the
+reference's keypoint rescale ``(kp + 0.5) * scale − 0.5``. Multi-scale
+extraction (``extract.py:87-200``): a fixed scale tuple or the per-image
+``auto`` pyramid, each scale resized on the device (``ops/resize.py``),
+run as its own batch, and merged across scales on the host. Semantic
+label maps (``nets/extractor.py:240-326``) make the top-K labelled-first
+and give each keypoint its label.
 
 With a ``mesh`` (``parallel/mesh.py``) each batch is split over the
 mesh's ``data`` axis, padded with empty images to whole shares: every
 device holds a replica of the model and the stem's weights, runs its
 share (kernel K1 on CUDA) and returns its own packed result.
 
+Numpy images go to the device in their own dtype and are rounded there
+into the padded uint8 batch, as resized scales are: the same levels as
+the JAX pipeline's rounding on the host, bit for bit.
+
 Spans (``utils/profiling.py``): ``extract.batch`` per ``extract_batch``
-(tag ``images``), and under it, per scale, ``extract.round`` (the host's
-rounding of numpy images into the padded uint8 batch), ``extract.upload``
-(that batch's copy to the device), ``extract.launch`` (the host's enqueue
-of normalisation, K1, the trunk and keypoint selection) and
-``extract.fetch`` (the packed result's copy back).
+(tag ``images``), and under it, per scale, ``extract.upload`` (the numpy
+images' copies to the device), ``extract.round`` (the host's enqueue of
+their quantisation into the padded uint8 batch; tag ``images``, from the
+counter ``extract.device_rounds``: the numpy images quantised on the
+device), ``extract.launch`` (the host's enqueue of normalisation, K1, the
+trunk and keypoint selection) and ``extract.fetch`` (the packed result's
+copy back).
 
 Differences from the JAX pipeline: buckets are rounded to
 ``pad_multiple`` only (the W%256 / H%16 rounding existed for the TPU
@@ -47,7 +53,7 @@ from sfd2_torch.ops.resize import resize_bilinear
 from sfd2_torch.ops.stem import repack_stem_params
 from sfd2_torch.parallel.mesh import put_batch, put_replicated, shard_batch
 from sfd2_torch.utils.device import resolve_device
-from sfd2_torch.utils.profiling import span
+from sfd2_torch.utils.profiling import count, span
 
 # ImageNet normalisation (``nets/extractor.py:14-15``).
 _RGB_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
@@ -158,6 +164,13 @@ def _pow2_ceil(n: int) -> int:
     return p
 
 
+def _quantize(x: torch.Tensor) -> torch.Tensor:
+    """Float [..., 3] in [0, 1] to uint8 levels, bit for bit
+    ``np.clip(np.rint(x * 255.0), 0, 255).astype(np.uint8)``: the product
+    and the rounding (half to even) in x's own dtype."""
+    return torch.clamp(torch.round(x * 255.0), 0, 255).to(torch.uint8)
+
+
 class _Replica(NamedTuple):
     """What one device needs to run the extraction program."""
 
@@ -203,26 +216,26 @@ class Extractor:
 
     def _pad_batch(self, images: Sequence):
         """uint8 [B, hp, wp, 3] zero-padded batch on the device (normalised
-        there). Each image is float [H, W, 3] in [0, 1]: a numpy array
-        (rounded to uint8 on the host, one upload for the batch) or a
-        tensor on the device (a resized scale, rounded there)."""
+        there). Each image is float [H, W, 3] in [0, 1]: a numpy array,
+        copied to the device in its own dtype, or a tensor on the device (a
+        resized scale); both are rounded there by ``_quantize``."""
         hp, wp = self._pad_hw(max(im.shape[0] for im in images),
                               max(im.shape[1] for im in images))
-        if any(isinstance(im, np.ndarray) for im in images):
-            with span("extract.round"):
-                host = np.zeros((len(images), hp, wp, 3), np.uint8)
-                for i, im in enumerate(images):
-                    if isinstance(im, np.ndarray):
-                        host[i, : im.shape[0], : im.shape[1]] = np.clip(
-                            np.rint(im * 255.0), 0, 255).astype(np.uint8)
+        batch = torch.zeros((len(images), hp, wp, 3), dtype=torch.uint8, device=self.device)
+        host = [i for i, im in enumerate(images) if isinstance(im, np.ndarray)]
+        if host:
+            # One pageable copy per image: on an H100's host this ran faster
+            # than a pinned double buffer filled by the host's memcpy (PERF.md).
             with span("extract.upload"):
-                batch = torch.from_numpy(host).to(self.device)
-        else:
-            batch = torch.zeros((len(images), hp, wp, 3), dtype=torch.uint8, device=self.device)
+                staged = [torch.from_numpy(np.ascontiguousarray(images[i])).to(self.device)
+                          for i in host]
+            with span("extract.round"):
+                for i, x in zip(host, staged):
+                    batch[i, : x.shape[0], : x.shape[1]] = _quantize(x)
+                count("extract.device_rounds", len(host), tag="images")
         for i, im in enumerate(images):
-            if isinstance(im, torch.Tensor):  # round half to even, as np.rint
-                batch[i, : im.shape[0], : im.shape[1]] = torch.clamp(
-                    torch.round(im * 255.0), 0, 255).to(torch.uint8)
+            if isinstance(im, torch.Tensor):
+                batch[i, : im.shape[0], : im.shape[1]] = _quantize(im)
         return batch, (hp, wp)
 
     @torch.inference_mode()

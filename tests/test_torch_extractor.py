@@ -1,4 +1,5 @@
-"""The port's ``Extractor`` against the JAX ``Extractor``, and the store.
+"""The port's ``Extractor`` against the JAX ``Extractor``, its padded uint8
+batch against the host's rounding rule, and the store.
 
 Both run the full-width ResSegNetV2 in float32 (``bf16=False``) on the
 same Flax-initialised weights with randomised BN statistics. The port
@@ -18,6 +19,7 @@ import torch
 from sfd2_torch.io.feature_store import FeatureStore, ImageFeatures
 from sfd2_torch.models.convert import state_dict_from_flax
 from sfd2_torch.pipeline.extract import ExtractionConfig, Extractor, normalize_image
+from sfd2_torch.utils import profiling
 from sfd2_tpu.io.feature_store import FeatureStore as JFeatureStore
 from sfd2_tpu.io.feature_store import ImageFeatures as JImageFeatures
 from sfd2_tpu.models.sfd2 import ResSegNetV2
@@ -103,6 +105,62 @@ def test_extract_to_store_matches_jax(extractors, tmp_path):
         for n in names:
             _compare(tstore.read(n), jstore.read(n))
     assert tex.extract_to_store(tmp_path, names, tstore) == 0  # existing groups skipped
+
+
+def _host_rule(images, pad):
+    """The padded uint8 batch as the host rounds it: zeros, then each
+    image's ``np.clip(np.rint(im * 255.0), 0, 255).astype(np.uint8)``."""
+    hp = -(-max(im.shape[0] for im in images) // pad) * pad
+    wp = -(-max(im.shape[1] for im in images) // pad) * pad
+    out = np.zeros((len(images), hp, wp, 3), np.uint8)
+    for i, im in enumerate(images):
+        out[i, : im.shape[0], : im.shape[1]] = np.clip(
+            np.rint(np.asarray(im) * 255.0), 0, 255).astype(np.uint8)
+    return out
+
+
+def _half_steps(dtype):
+    """Every level's exact half step (k + 0.5) / 255 and its neighbours."""
+    k = (np.arange(256) + 0.5) / 255
+    v = np.concatenate([k, np.nextafter(k, 0), np.nextafter(k, 1)]).astype(dtype)
+    return np.resize(v, (16, 48, 3))
+
+
+# Each case: the calls of `_pad_batch`, in order, each a list of images.
+_PAD_CASES = {
+    "float32": lambda rng: [[rng.random((70, 90, 3), dtype=np.float32)]],
+    "float64": lambda rng: [[rng.random((70, 90, 3))]],
+    "half_steps": lambda rng: [[_half_steps(np.float32), _half_steps(np.float64)]],
+    "out_of_range": lambda rng: [[rng.uniform(-0.5, 1.5, (40, 50, 3)).astype(np.float32),
+                                  rng.uniform(-0.5, 1.5, (40, 50, 3))]],
+    "ragged": lambda rng: [[rng.random((70, 90, 3), dtype=np.float32),
+                            rng.random((130, 40, 3), dtype=np.float32),
+                            np.zeros((1, 1, 3), np.float32)]],
+    "numpy_and_tensor": lambda rng: [[rng.random((70, 90, 3), dtype=np.float32),
+                                      torch.rand((50, 100, 3)),
+                                      rng.random((20, 20, 3), dtype=np.float32)]],
+    "large_then_small": lambda rng: [[rng.random((130, 190, 3), dtype=np.float32)] * 2,
+                                     [rng.random((30, 40, 3), dtype=np.float32)]],
+}
+
+
+@pytest.mark.parametrize("case", list(_PAD_CASES))
+def test_pad_batch_rounds_as_the_host_rule(extractors, case):
+    """Numpy images rounded on the device give the host's rounding bit for
+    bit, padding zero; the inputs stay as they were, and
+    ``extract.device_rounds`` counts the numpy images."""
+    _, tex = extractors
+    for images in _PAD_CASES[case](np.random.default_rng(3)):
+        kept = [np.array(im) for im in images]
+        before = profiling.counter("extract.device_rounds")
+        batch, hw = tex._pad_batch(images)
+        want = _host_rule(images, tex.cfg.pad_multiple)
+        assert batch.dtype == torch.uint8 and hw == want.shape[1:3]
+        np.testing.assert_array_equal(batch.cpu().numpy(), want)
+        assert profiling.counter("extract.device_rounds") - before == sum(
+            isinstance(im, np.ndarray) for im in images)
+        for im, k in zip(images, kept):
+            np.testing.assert_array_equal(np.asarray(im), k)
 
 
 def test_normalize_image_matches_jax(rng):

@@ -23,13 +23,16 @@ card within 1e-4; two runs of ``bundle_adjust`` give the same bits (its
 sums run in one fixed order, ``sfm/ba.py::SegmentPlan``). The localization programs (PnP-RANSAC, the refinement, LM)
 replayed from their CUDA graphs must equal the same programs run eagerly
 on the card, be captured once per key, and give the sequential results
-when four threads replay them.
+when four threads replay them. ``Extractor.extract_batch`` on numpy
+images, copied to the card as floats and rounded there, must give the
+features of the same images passed as tensors on the card.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from sfd2_torch.cli.extract_features import seeded_state_dict
 from sfd2_torch.ops.cuda_gather import (count_graph_replays, gather_rows_cuda,
                                         graph_capture_record)
 from sfd2_torch.ops.cuda_match import mutual_nn_match_cuda
@@ -40,6 +43,7 @@ from sfd2_torch.ops.cuda_stem import StemWeights, fused_stem_cuda
 from sfd2_torch.ops.gather import gather_rows_plain
 from sfd2_torch.ops.matching import mutual_nn_match, mutual_nn_ratio_match, nn_argmax, nn_top2
 from sfd2_torch.ops.stem import fused_stem_apply, repack_stem_params
+from sfd2_torch.pipeline.extract import ExtractionConfig, Extractor
 from sfd2_torch.utils import profiling
 
 # The suite runs in several worker processes on a few cores: keep each
@@ -675,6 +679,36 @@ def test_refine_pose_lm_runs_from_a_graph_on_card(cuda_device):
     assert (q.cpu() - q_c).abs().max().item() <= 1e-4
     assert (t.cpu() - t_c).abs().max().item() <= 1e-4
     assert (t.cpu() - torch.tensor(np.stack([t for _, t in poses]))).abs().max().item() <= 0.02
+
+
+@pytest.mark.cuda
+def test_extract_batch_rounds_numpy_images_on_card(cuda_device):
+    """Numpy images copied to the card as floats and rounded there: over
+    three calls whose buckets shrink and then grow, the padded uint8 batch
+    equals the host's rounding, the features equal bit for bit those of
+    the same images passed as tensors on the card (the resized scales'
+    branch), and ``extract.device_rounds`` counts each call's numpy
+    images."""
+    ex = Extractor(seeded_state_dict(0), ExtractionConfig(max_keypoints=256), device=cuda_device)
+    rng = np.random.default_rng(7)
+    for shapes in ([(200, 260), (150, 300), (180, 90)], [(60, 80), (64, 64)],
+                   [(420, 500), (300, 520), (100, 100), (410, 90), (50, 40)]):
+        images = [np.kron(rng.random((-(-h // 8), -(-w // 8), 3)), np.ones((8, 8, 1)))[:h, :w]
+                  .astype(np.float32) for h, w in shapes]
+        images[-1] = images[-1].astype(np.float64)
+        batch, (hp, wp) = ex._pad_batch(images)
+        want = np.zeros((len(images), hp, wp, 3), np.uint8)
+        for i, im in enumerate(images):
+            want[i, : im.shape[0], : im.shape[1]] = np.clip(np.rint(im * 255.0), 0, 255)
+        np.testing.assert_array_equal(batch.cpu().numpy(), want)
+        before = profiling.counter("extract.device_rounds")
+        got = ex.extract_batch(images)
+        assert profiling.counter("extract.device_rounds") - before == len(images)
+        ref = ex.extract_batch([torch.from_numpy(im).to(cuda_device) for im in images])
+        for g, r in zip(got, ref):
+            assert len(g.keypoints) > 0
+            for a, b in zip(g[:4], r[:4]):
+                np.testing.assert_array_equal(a, b)
 
 
 @pytest.mark.cuda

@@ -261,12 +261,15 @@ def test_extract_batch_spans_in_order():
     ex = Extractor(seeded_state_dict(0), ExtractionConfig(max_keypoints=32, bf16=False),
                    device="cpu")
     images = [np.random.default_rng(i).random((64, 96, 3), dtype=np.float32) for i in range(2)]
+    rounds = profiling.counter("extract.device_rounds")
     with profiling.recording() as recs:
         feats = ex.extract_batch(images)
     assert len(feats) == 2
     root = recs[-1]
     assert (root.name, root.parent, root.tags) == ("extract.batch", None, {"images": 2})
     inner = [r for r in recs if r.parent == root.id]
-    assert [r.name for r in inner] == ["extract.round", "extract.upload", "extract.launch",
+    assert [r.name for r in inner] == ["extract.upload", "extract.round", "extract.launch",
                                        "extract.fetch"]
     assert all(a.t1 <= b.t0 for a, b in zip(inner, inner[1:]))
+    assert inner[1].tags == {"images": 2}  # the numpy images quantised on the device
+    assert profiling.counter("extract.device_rounds") - rounds == 2
