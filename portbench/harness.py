@@ -9,6 +9,7 @@ per-layer metric is a file of its own, found by the names in
   portbench/mixes/<traffic>.json          {"driver": <kind>, ...parameters}
   portbench/drivers/<kind>.py             run(ctx) -> dict
   portbench/limits/<workload>.json        the limits of the cell's check
+  portbench/controls/<kind>.py            the controls of the kind's check (control.py)
   portbench/metrics/<metric>.py           read(ctx) -> float | None, or else
   portbench/metrics/<prefix>.py           for a metric named <prefix>.<cells>: one
                                           reader for a quantity read in several cells

@@ -17,8 +17,9 @@ yardstick. Differences from the copied generator:
   writes (``ExtractionConfig.as_half`` is off), laid out [C, K] per image
   as the feature store keeps them.
 
-``pairs_from_poses`` (``sfd2_torch/sfm/pairs.py``), the DB pair rule, is
-not copied: no cell of the benchmark builds a map yet.
+The map-build cell pairs DB images by covisibility (``portbench/covis.py``);
+``pairs_from_poses`` (``sfd2_torch/sfm/pairs.py``) is not copied: no cell
+pairs by pose.
 """
 
 from __future__ import annotations

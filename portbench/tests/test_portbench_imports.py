@@ -11,7 +11,8 @@ from portbench import harness
 REFERENCE = """
 import json, sys
 import portbench.reference.localize, portbench.reference.match, portbench.reference.pose
-import portbench.reference.precision, portbench.reference.sfd2
+import portbench.reference.precision, portbench.reference.sfd2, portbench.reference.mapbuild
+import portbench.covis
 print(json.dumps(sorted({m.split(".")[0] for m in sys.modules})))
 """
 
