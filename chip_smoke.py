@@ -9,7 +9,12 @@ matchers K2, K4, K5 and K6, which share ``csrc/nn_tc.cuh``, run on the
 tensor cores and must hold wgmma instructions, HGMMA in their SASS), holds
 each against its plain PyTorch version at the main paths' shapes, with its
 bounds on the CUDA cores and on the tensor cores (K3 also replayed from a
-CUDA graph, ``graph_ms``), then drives the main paths:
+CUDA graph, ``graph_ms``), and the segmentor's tail (Triton,
+``ops/segment_tail.py``; no TPU kernel's port) against
+``segment_tail_plain`` at the benchmark cell's shapes ([16,128,128,150]
+→ [8,1200,1600] labels; its check's [8,128,128,150] → [4,512,683,150]
+logits) and ``train_sources``' ([24,128,128,150] → [4,768,1024]),
+``kernel_segment_tail``; then drives the main paths:
 - the query path: ``Extractor`` on four 1024² images with the full-width
   ResSegNetV2 (random weights from a seed), and
   ``LocalizationEngine.localize`` on the synthetic corridor scene at the
@@ -88,7 +93,8 @@ CUDA graph, ``graph_ms``), then drives the main paths:
   (K1 at [4,1024,1024,3]) against the unfused stem (``train_extract``);
 - training's data sources (``train_sources``): an Aachen layout and a
   debug folder written to disk, label maps from the seeded segmentor
-  (``cli/segment_images.py::segment_folder``), ``Trainer`` over
+  (``cli/segment_images.py::segment_folder`` through
+  ``Segmentor.segment_batch``: the tail kernel), ``Trainer`` over
   ``build_data_source("DSF")`` with those labels;
 - the mesh (``mesh``), right after ``localize``: meshes of the card's
   devices and of four entries of cuda:0; sharded matching (K2 at
@@ -146,6 +152,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from portbench.flops_segment import tail_cost
 from sfd2_torch.cli import extract_features as extract_cli
 from sfd2_torch.cli import localizer as localizer_cli
 from sfd2_torch.cli import match_features as match_cli
@@ -203,7 +210,8 @@ from sfd2_torch.sfm.tracks import track_edges, union_find_roots_plain
 from sfd2_torch.utils.profiling import trace
 from sfd2_torch.utils.synth import build_corridor_scene
 from sfd2_torch.models.superpoint import SuperPoint
-from sfd2_torch.models.upernet import Segmentor, SegmentorConfig, seeded_segmentor
+from sfd2_torch.models.upernet import Segmentor, SegmentorConfig, seeded_segmentor, slide_plan
+from sfd2_torch.ops.segment_tail import segment_tail, segment_tail_plain, tail_plan
 from sfd2_torch.pipeline import extract as pipeline_extract
 from sfd2_torch.training.data import (ArrayDataset, PairLoader, PrecomputedPairBuilder,
                                       SyntheticPairBuilder, warp_perspective)
@@ -245,6 +253,10 @@ KERNELS = {
                       replaces="sfd2_tpu/ops/pallas_match.py:126", wrapper=nn_argmax_cuda),
     "nn_top2": dict(route="cuda", source="sfd2_torch/csrc/nn_top2.cu",
                     replaces="sfd2_tpu/ops/pallas_match.py:540", wrapper=nn_top2_cuda),
+    # No TPU kernel's port: the JAX package averages and resizes in XLA and
+    # takes the argmax on the host.
+    "segment_tail": dict(route="triton", source="sfd2_torch/ops/segment_tail.py",
+                         replaces=None, wrapper=segment_tail),
 }
 
 
@@ -748,6 +760,117 @@ NN_SHAPES = [((1, 4096, 4096, 128), False), ((16, 4096, 4096, 128), False),
 def phase_kernel_nn(results, name: str):
     results[name] = {(*s, bc): nn_case(name, *s, bc) for s, bc in NN_SHAPES}
     nn_tie_check(name)
+
+
+# The segmentor's tail (ops/segment_tail.py): folded logits within
+# TAIL_ATOL of the plain version's, and labels equal wherever the plain
+# logits' top-2 margin exceeds TAIL_MARGIN.
+TAIL_ATOL = 1e-5
+TAIL_MARGIN = 1e-4
+TAIL_CLASSES = 150  # ADE20k
+# The benchmark cell's configuration (upernet-convnext-b-ade20k): mmseg's
+# keep-ratio resize into 2048×512 and the 512/341 slide.
+SEG_CELL = SegmentorConfig(scale=(2048, 512), fp16=True)
+
+
+def tail_stepwise(lg, geo, out, n: int, labels: bool):
+    """The tail as torch's step-by-step ops: each crop's logits upsampled
+    to the crop, summed on the canvas and divided by the count, the
+    image's region resized to `out`, the argmax (labels uint8); without
+    `labels`, the averaged region [n, rh, rw, C]."""
+    interp = functools.partial(torch.nn.functional.interpolate, mode="bilinear",
+                               align_corners=False)
+    c, (cy, cx), (rh, rw) = lg.shape[-1], geo.crop, geo.resized
+    up = interp(lg.permute(0, 3, 1, 2), size=geo.crop).view(n, -1, c, cy, cx)
+    acc = lg.new_zeros((n, c, *geo.canvas))
+    cnt = lg.new_zeros((1, 1, *geo.canvas))
+    for k, (y, x) in enumerate((y, x) for y in geo.ys for x in geo.xs):
+        acc[:, :, y:y + cy, x:x + cx] += up[:, k]
+        cnt[:, :, y:y + cy, x:x + cx] += 1
+    avg = (acc / cnt)[:, :, :rh, :rw]
+    if not labels:
+        return avg.permute(0, 2, 3, 1)
+    return interp(avg, size=out).argmax(1).to(torch.uint8)
+
+
+def tail_case(config: SegmentorConfig, n: int, h: int, w: int, labels: bool = True,
+              device="cuda") -> tuple:
+    """(launch record, row): the tail kernel against its plain version on
+    the same seeded logits, at the geometry `config` gives `n` images of
+    [h, w] (``slide_plan``, as ``Segmentor`` runs it): labels at [h, w],
+    or without `labels` the averaged logits at the resized scale (the
+    benchmark's check). The folded logits (``labels=False``) within
+    TAIL_ATOL of the plain version's; labels equal to the plain version's
+    wherever its logits' top-2 margin exceeds TAIL_MARGIN; torch's
+    step-by-step ops (``tail_stepwise``) held the same way. Bound:
+    ``portbench/flops_segment.py::tail_cost`` on the CUDA cores' f32 peak
+    and HBM, the larger."""
+    geo = slide_plan(config, h, w)
+    q = (geo.crop[0] // 4, geo.crop[1] // 4)
+    out = (h, w) if labels else geo.resized
+    plan = tail_plan(out, geo.resized, geo.ys, geo.xs, geo.crop, q, device)
+    crops = len(geo.ys) * len(geo.xs)
+    key = (n, crops, *geo.crop, *q, *geo.resized, *out, TAIL_CLASSES, labels)
+    what = f"segment_tail at {list(key)}"
+    gen = torch.Generator(device=device).manual_seed(SEED + 23)
+    lg = torch.randn((n * crops, *q, TAIL_CLASSES), generator=gen, device=device)
+    fold_ref = segment_tail_plain(lg, plan, n, labels=False)
+    err = segment_tail(lg, plan, n, labels=False).sub_(fold_ref).abs_().max().item()
+    require(err <= TAIL_ATOL, f"{what}: folded logits differ by {err} > {TAIL_ATOL}")
+    step = tail_stepwise(lg, geo, out, n, labels)
+    row = dict(shape=list(key), max_abs_err=err)
+    if labels:
+        top2 = fold_ref.topk(2, dim=-1).values
+        sure = (top2[..., 0] - top2[..., 1]) > TAIL_MARGIN
+        del top2
+        got, plain = segment_tail(lg, plan, n), segment_tail_plain(lg, plan, n)
+        require(bool(torch.equal(plain, fold_ref.argmax(-1).to(torch.uint8))),
+                f"{what}: the plain labels are not its folded logits' argmax")
+        miss, step_miss = int((got != plain)[sure].sum()), int((step != plain)[sure].sum())
+        row.update(sure_share=float(sure.float().mean()), label_miss=miss,
+                   stepwise_label_miss=step_miss)
+        require(row["sure_share"] > 0.99 and miss == 0 and step_miss == 0,
+                f"{what}: labels differ on sure pixels {row}")
+    else:
+        row["stepwise_max_abs_err"] = (step - fold_ref).abs().max().item()
+        require(row["stepwise_max_abs_err"] <= TAIL_ATOL, f"{what}: the step-by-step ops differ {row}")
+    del fold_ref, step
+    flops, nbytes = tail_cost(*key[:-1])
+    if not labels:  # float32 logits out in place of labels, no argmax
+        flops -= n * out[0] * out[1] * TAIL_CLASSES
+        nbytes += n * out[0] * out[1] * (4 * TAIL_CLASSES - 1)
+    bound_ms, bound_by = bound(flops, nbytes)
+    kernel = functools.partial(segment_tail, lg, plan, n, labels)
+    row.update(ms=cuda_ms(kernel),
+               plain_ms=cuda_ms(functools.partial(segment_tail_plain, lg, plan, n, labels),
+                                warmup=1, iters=3),
+               library_ms=cuda_ms(functools.partial(tail_stepwise, lg, geo, out, n, labels),
+                                  warmup=1, iters=5),
+               kernel_device_ms=device_ms_per_call(kernel, iters=10),
+               gflop=flops / 1e9, mbytes=nbytes / 1e6, bound_ms=bound_ms, bound_by=bound_by,
+               bound_peak="f32 67 TFLOP/s (CUDA cores), HBM 3.35 TB/s")
+    emit("kernel_segment_tail", **row)
+    return key, row
+
+
+def tail_cases() -> list:
+    """(config, images, h, w, labels) of the tail's launches on the main
+    paths: the benchmark cell's call (8 1600×1200 images, 2 crops each),
+    its check's logits (4 images at the resized scale), and
+    `train_sources`' calls through ``segment_folder`` (768×1024 images at
+    their own size, 6 crops each; a call a folder)."""
+    return ([(SEG_CELL, 8, 1200, 1600, True), (SEG_CELL, 4, 1200, 1600, False)]
+            + [(SegmentorConfig(), n, *SOURCES["hw"], True)
+               for n in sorted({SOURCES["n_db"], SOURCES["n_debug"]})])
+
+
+def phase_kernel_segment_tail(results):
+    results["segment_tail"] = dict(tail_case(*c) for c in tail_cases())
+
+
+def no_tail_case(*key):
+    raise AssertionError(f"segment_tail: a main path launched {list(key)}, which "
+                         f"tail_cases() does not give: add its geometry there")
 
 
 # The first tiled bank sizes (ops/matching.py::tiled_route): at C=128, and
@@ -3704,7 +3827,7 @@ def kernel_table(results, shapes: dict) -> list:
                                        "graph_ms", "plain_ms", "bound_ms", "bound_by",
                                        "bf16_tc_bound_ms", "cuda_core_bound_ms", "library_ms",
                                        "kernel_device_ms", "library_device_ms",
-                                       "conv1a_share") if f in r}
+                                       "conv1a_share", "label_miss") if f in r}
                     for r in per_shape]))
     return table
 
@@ -3731,6 +3854,7 @@ def main():
     phase_kernel_match_ratio(results)
     phase_kernel_nn(results, "nn_argmax")
     phase_kernel_nn(results, "nn_top2")
+    phase_kernel_segment_tail(results)
     phase_bench(results)
     phase_grouped_conv(results)
     # The main paths: extract (r1024, then multi-scale labelled r1600),
@@ -3766,7 +3890,7 @@ def main():
     cases = {"fused_stem": stem_case, "mutual_nn_match": match_case,
              "gather_rows": gather_case, "mutual_nn_ratio_match": ratio_case,
              "nn_argmax": functools.partial(nn_case, "nn_argmax"),
-             "nn_top2": functools.partial(nn_case, "nn_top2")}
+             "nn_top2": functools.partial(nn_case, "nn_top2"), "segment_tail": no_tail_case}
     for name, counts in shapes.items():
         for key in counts:
             if key not in results[name]:

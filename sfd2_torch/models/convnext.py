@@ -5,6 +5,8 @@ patchify stem + LayerNorm, stages of [depthwise 7×7 → LayerNorm →
 Linear(4×) → GELU → Linear → γ-scale → residual] blocks with LayerNorm +
 2×2 s2 conv downsampling between stages, and a LayerNorm on each output
 stage; layer_scale_init_value 1.0 as in the reference's constructor.
+LayerNorm's epsilon is the JAX package's 1e-5 unless `ln_eps` is given
+(mmcls's ConvNeXt, as mmseg's UPerNet configs build it, uses 1e-6).
 
 The modules carry mmcls's names (``downsample_layers.{i}.{0,1}``,
 ``stages.{i}.{j}.{depthwise_conv,norm,pointwise_conv1,pointwise_conv2,
@@ -31,23 +33,25 @@ ARCH_SETTINGS = {
     "large": {"depths": (3, 3, 27, 3), "channels": (192, 384, 768, 1536)},
 }
 LN_EPS = 1e-5
+MMSEG_LN_EPS = 1e-6  # mmseg's ConvNeXt configs, which its checkpoints were trained with
 
 
 class LayerNorm2d(nn.LayerNorm):
     """LayerNorm over the channels of an NCHW map (mmcls ``LayerNorm2d``)."""
 
-    def __init__(self, channels: int):
-        super().__init__(channels, eps=LN_EPS)
+    def __init__(self, channels: int, eps: float = LN_EPS):
+        super().__init__(channels, eps=eps)
 
     def forward(self, x):
         return super().forward(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
 
 
 class ConvNeXtBlock(nn.Module):
-    def __init__(self, channels: int, mlp_ratio: int = 4, layer_scale_init_value: float = 1.0):
+    def __init__(self, channels: int, mlp_ratio: int = 4, layer_scale_init_value: float = 1.0,
+                 eps: float = LN_EPS):
         super().__init__()
         self.depthwise_conv = nn.Conv2d(channels, channels, 7, padding=3, groups=channels)
-        self.norm = nn.LayerNorm(channels, eps=LN_EPS)
+        self.norm = nn.LayerNorm(channels, eps=eps)
         self.pointwise_conv1 = nn.Linear(channels, mlp_ratio * channels)
         self.pointwise_conv2 = nn.Linear(mlp_ratio * channels, channels)
         self.gamma = (nn.Parameter(torch.full((channels,), float(layer_scale_init_value)))
@@ -62,20 +66,21 @@ class ConvNeXtBlock(nn.Module):
 
 
 class ConvNeXt(nn.Module):
-    def __init__(self, arch: str = "base", out_indices: Tuple[int, ...] = (0, 1)):
+    def __init__(self, arch: str = "base", out_indices: Tuple[int, ...] = (0, 1),
+                 ln_eps: float = LN_EPS):
         super().__init__()
         depths, channels = ARCH_SETTINGS[arch]["depths"], ARCH_SETTINGS[arch]["channels"]
         self.out_indices = tuple(out_indices)
         self.downsample_layers = nn.ModuleList(
-            [nn.Sequential(nn.Conv2d(3, channels[0], 4, 4), LayerNorm2d(channels[0]))]
-            + [nn.Sequential(LayerNorm2d(channels[i - 1]), nn.Conv2d(channels[i - 1], channels[i],
-                                                                      2, 2))
+            [nn.Sequential(nn.Conv2d(3, channels[0], 4, 4), LayerNorm2d(channels[0], ln_eps))]
+            + [nn.Sequential(LayerNorm2d(channels[i - 1], ln_eps),
+                             nn.Conv2d(channels[i - 1], channels[i], 2, 2))
                for i in range(1, len(depths))])
         self.stages = nn.ModuleList(
-            nn.Sequential(*[ConvNeXtBlock(channels[i]) for _ in range(depths[i])])
+            nn.Sequential(*[ConvNeXtBlock(channels[i], eps=ln_eps) for _ in range(depths[i])])
             for i in range(len(depths)))
         for i in self.out_indices:
-            self.add_module(f"norm{i}", LayerNorm2d(channels[i]))
+            self.add_module(f"norm{i}", LayerNorm2d(channels[i], ln_eps))
 
     def features_nchw(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         outs = []

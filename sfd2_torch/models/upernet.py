@@ -15,13 +15,15 @@ name (``load_mmseg_state_dict``; ``convert_upernet`` returns the
 converted state_dict, the JAX package's conversion entry). The teacher is
 frozen: eval mode, float32 unless bf16 is asked for. ``Segmentor`` keeps
 the reference's ``SegNet.evaluate`` contract with slide inference (all
-crops in one batched call) or whole-image inference.
+crops in one batched call) or whole-image inference, and runs mmseg's
+test pipeline (keep-ratio resize, slide, resize back, argmax) on the
+device for a batch of images (``segment_batch``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Mapping, Optional, Sequence
+from typing import Any, Dict, Mapping, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -29,8 +31,10 @@ from torch import nn
 import torch.nn.functional as F
 
 from sfd2_torch.models.convert import float_state_dict
-from sfd2_torch.models.convnext import ARCH_SETTINGS, ConvNeXt
+from sfd2_torch.models.convnext import ARCH_SETTINGS, LN_EPS, ConvNeXt
+from sfd2_torch.ops.segment_tail import TailPlan, segment_tail, tail_plan
 from sfd2_torch.utils.device import resolve_device
+from sfd2_torch.utils.profiling import count, span
 
 # mmseg ADE20k normalisation (configs/_base_/datasets/ade20k.py).
 ADE20K_MEAN = np.array([123.675, 116.28, 103.53], np.float32)
@@ -104,13 +108,14 @@ class FCNHead(nn.Module):
 
 class ConvNeXtUPerNet(nn.Module):
     """EncoderDecoder(ConvNeXt, UPerHead, FCNHead): logits at 1/4 of the
-    input resolution (mmseg resizes them to the input before argmax)."""
+    input resolution (mmseg resizes them to the input before argmax).
+    `ln_eps`: the backbone's LayerNorm epsilon (1e-6 in mmseg's configs)."""
 
     def __init__(self, arch: str = "base", num_classes: int = 150, head_channels: int = 512,
-                 aux_channels: int = 256):
+                 aux_channels: int = 256, ln_eps: float = LN_EPS):
         super().__init__()
         ch = ARCH_SETTINGS[arch]["channels"]
-        self.backbone = ConvNeXt(arch, out_indices=(0, 1, 2, 3))
+        self.backbone = ConvNeXt(arch, out_indices=(0, 1, 2, 3), ln_eps=ln_eps)
         self.decode_head = UPerHead(ch, head_channels, num_classes)
         self.auxiliary_head = FCNHead(ch[2], aux_channels, num_classes)
 
@@ -172,12 +177,75 @@ class SegmentorConfig:
     mode: str = "slide"  # 'slide' (the shipped test_cfg) or 'whole'
     pad_multiple: int = 32
     bf16: Optional[bool] = None  # None: float32, as the JAX package off a TPU
+    # mmseg's test-pipeline Resize: img_scale as (long, short), keep_ratio.
+    # None: the image at its own size (the JAX package's behaviour).
+    scale: Optional[Tuple[int, int]] = None
+    fp16: bool = False  # float16 autocast (convs and linears), as mmseg's fp16 config
+
+
+MAX_CROPS = 16  # crops a forward: a call with more (full-resolution slides) runs several
+
+
+def rescale_size(h: int, w: int, scale: Sequence[int]) -> Tuple[int, int]:
+    """mmcv's ``rescale_size`` for ``keep_ratio=True``: the largest size of
+    the image's aspect within (long, short) = `scale`, each side rounded
+    half up."""
+    f = min(max(scale) / max(h, w), min(scale) / min(h, w))
+    return int(h * f + 0.5), int(w * f + 0.5)
+
+
+def slide_starts(n: int, crop: int, stride: int) -> Tuple[int, ...]:
+    """mmseg's ``slide_inference`` grid along a side of `n` ≥ `crop`: starts
+    every `stride`, the last clamped to end at the far edge."""
+    grids = max(n - crop + stride - 1, 0) // stride + 1
+    return tuple(min(i * stride, n - crop) for i in range(grids))
+
+
+class SlidePlan(NamedTuple):
+    """Where an image of one size goes: resized to `resized`, zero-padded
+    (after normalisation) to `canvas`, cut into crops of `crop` at
+    `ys` × `xs`."""
+
+    resized: Tuple[int, int]
+    canvas: Tuple[int, int]
+    crop: Tuple[int, int]
+    ys: Tuple[int, ...]
+    xs: Tuple[int, ...]
+
+
+def slide_plan(cfg: SegmentorConfig, h: int, w: int, mode: Optional[str] = None) -> SlidePlan:
+    """The resize, canvas and crops of an [h, w] image under `cfg`, in
+    `mode` (the configuration's by default)."""
+    mode = mode or cfg.mode
+    rh, rw = (h, w) if cfg.scale is None else rescale_size(h, w, cfg.scale)
+    m = cfg.pad_multiple
+    ph, pw = -(-rh // m) * m, -(-rw // m) * m
+    if mode == "whole":
+        return SlidePlan((rh, rw), (ph, pw), (ph, pw), (0,), (0,))
+    c = cfg.crop
+    if cfg.scale is not None:  # mmseg slides over the resized image itself
+        ph, pw = rh, rw
+    ph, pw = max(ph, c), max(pw, c)
+    ys, xs = slide_starts(ph, c, cfg.stride), slide_starts(pw, c, cfg.stride)
+    return SlidePlan((rh, rw), (max(ph, ys[-1] + c), max(pw, xs[-1] + c)), (c, c), ys, xs)
 
 
 class Segmentor:
     """The reference ``SegNet.evaluate`` contract: an RGB image (HWC,
-    uint8 or float in 0..255) → ADE20k label map [H, W] int32, 0-based
-    (callers add 1 for the 1..150 convention, ``trainer.py:290``)."""
+    uint8 or float in 0..255) → ADE20k label map [H, W], 0-based
+    (callers add 1 for the 1..150 convention, ``trainer.py:290``).
+
+    One device path serves every entry (``segment_batch``): each image
+    copied to the device once; there the keep-ratio resize (``scale``;
+    bilinear, half-pixel centres, rounded to uint8 levels as
+    ``mmcv.imresize`` gives them), the ADE20k normalisation, the zero pad
+    and the crops (mmseg's slide grid, or the whole padded image); every
+    crop of the call through the network in one forward (under float16
+    autocast with ``fp16``); then ``ops/segment_tail.py`` averages the
+    crops' logits, resizes the image's part back to its size and takes
+    the argmax, writing uint8 labels; one fetch. With ``scale=None`` and
+    a slide, the image is padded to a multiple of ``pad_multiple`` and at
+    least a crop, as the JAX package pads it."""
 
     def __init__(self, model: Optional[ConvNeXtUPerNet] = None,
                  config: Optional[SegmentorConfig] = None, device="cuda", seed: int = 0):
@@ -186,55 +254,104 @@ class Segmentor:
         model = model or seeded_segmentor(seed=seed)
         dt = torch.bfloat16 if self.config.bf16 else torch.float32
         self.model = model.eval().requires_grad_(False).to(self.device, dt)
+        self._autocast = torch.float16 if self.config.fp16 else None
+        self._mean = torch.from_numpy(ADE20K_MEAN).to(self.device)[:, None, None]
+        self._std = torch.from_numpy(ADE20K_STD).to(self.device)[:, None, None]
+        self._tails: Dict[tuple, TailPlan] = {}
 
-    def _pad(self, img: np.ndarray, size: int | None = None):
-        h, w = img.shape[:2]
-        m = self.config.pad_multiple
-        ph = max(size or 0, -((-h) // m) * m)
-        pw = max(size or 0, -((-w) // m) * m)
-        out = np.zeros((ph, pw, 3), np.float32)
-        out[:h, :w] = (img.astype(np.float32) - ADE20K_MEAN) / ADE20K_STD
-        return out, (h, w)
+    def plan(self, h: int, w: int, mode: Optional[str] = None) -> SlidePlan:
+        """``slide_plan`` of an [h, w] image under this configuration."""
+        return slide_plan(self.config, h, w, mode)
 
-    @torch.no_grad()
-    def _logits(self, x: np.ndarray, size) -> torch.Tensor:
-        """Logits [N, C, size] of NHWC crops `x`, on the device."""
-        logits = self.model(torch.from_numpy(x).to(self.device))
-        return _up(logits.permute(0, 3, 1, 2), size)
+    def _upload(self, images: Sequence) -> torch.Tensor:
+        """[B, H, W, 3] on the device: one copy per image, in its own dtype
+        (uint8, or float32 for float images)."""
+        shape = np.shape(images[0])
+        if len(shape) != 3 or shape[2] != 3 or any(np.shape(im) != shape for im in images):
+            raise ValueError(f"segment_batch: need RGB images [H, W, 3] of one shape, got "
+                             f"{[np.shape(im) for im in images]}")
+        u8 = all(np.asarray(im).dtype == np.uint8 for im in images)
+        with span("segment.upload"):
+            x = torch.empty((len(images), *shape), device=self.device,
+                            dtype=torch.uint8 if u8 else torch.float32)
+            for i, im in enumerate(images):
+                im = np.asarray(im)
+                x[i].copy_(torch.from_numpy(np.ascontiguousarray(
+                    im if u8 else im.astype(np.float32))))
+        return x
+
+    def _prep(self, x: torch.Tensor, plan: SlidePlan) -> torch.Tensor:
+        """[B, H, W, 3] → normalised crops [B · crops, 3, crop_h, crop_w]."""
+        with span("segment.prep"):
+            y = x.permute(0, 3, 1, 2).float()
+            if plan.resized != tuple(x.shape[1:3]):
+                y = _up(y, plan.resized)
+                if x.dtype == torch.uint8:  # the resized image in uint8 levels
+                    y = y.round_().clamp_(0, 255)
+            y = (y - self._mean) / self._std
+            (rh, rw), (ch, cw), (cy, cx) = plan.resized, plan.canvas, plan.crop
+            y = F.pad(y, (0, cw - rw, 0, ch - rh))
+            crops = torch.stack([y[:, :, a:a + cy, b:b + cx] for a in plan.ys for b in plan.xs], 1)
+            return crops.reshape(-1, 3, cy, cx)
+
+    def _forward(self, crops: torch.Tensor) -> torch.Tensor:
+        """Crops [N, 3, h, w] → logits [N, h/4, w/4, classes] float32,
+        contiguous; at most ``MAX_CROPS`` crops a forward."""
+        with span("segment.forward"), torch.autocast(self.device.type, dtype=self._autocast,
+                                                      enabled=self._autocast is not None):
+            dt = self.model.decode_head.conv_seg.weight.dtype
+            out = [self.model.decode_head(self.model.backbone.features_nchw(part.to(dt)))
+                   for part in crops.split(MAX_CROPS)]
+            return torch.cat(out).permute(0, 2, 3, 1).float().contiguous()
+
+    def _tail(self, logits: torch.Tensor, plan: SlidePlan, size, labels: bool) -> torch.Tensor:
+        """Labels [B, H, W] uint8 at `size` or, without `labels`, the
+        averaged logits [B, rh, rw, classes] at the resized scale."""
+        out = tuple(size) if labels else plan.resized
+        key = (plan, out, tuple(logits.shape[1:3]), labels)
+        with span("segment.fuse"):
+            tail = self._tails.get(key)
+            if tail is None:
+                tail = self._tails[key] = tail_plan(out, plan.resized, plan.ys, plan.xs,
+                                                    plan.crop, logits.shape[1:3], self.device)
+            n = len(logits) // (len(plan.ys) * len(plan.xs))
+            return segment_tail(logits, tail, n, labels)
+
+    @torch.inference_mode()
+    def segment_batch(self, images: Sequence) -> np.ndarray:
+        """RGB images of one shape [H, W, 3] (uint8, or float in 0..255) →
+        0-based labels [B, H, W] uint8 on the host."""
+        with span("segment.batch", images=len(images)):
+            x = self._upload(images)
+            plan = self.plan(*x.shape[1:3])
+            crops = self._prep(x, plan)
+            count("segment.images", len(x))
+            count("segment.crops", len(crops), tag="crops")
+            labels = self._tail(self._forward(crops), plan, x.shape[1:3], True)
+            with span("segment.fetch"):
+                return labels.cpu().numpy()
+
+    @torch.inference_mode()
+    def logits_batch(self, images: Sequence, mode: Optional[str] = None) -> torch.Tensor:
+        """The crops' averaged logits [B, rh, rw, classes] float32 at the
+        resized scale (the image's own size with ``scale=None``), on the
+        device: ``segment_batch``'s path up to its resize back."""
+        x = self._upload(images)
+        plan = self.plan(*x.shape[1:3], mode)
+        return self._tail(self._forward(self._prep(x, plan)), plan, None, False)
 
     def logits_whole(self, img: np.ndarray) -> np.ndarray:
-        """Whole-image logits at input resolution, [H, W, classes] f32."""
-        x, (h, w) = self._pad(img)
-        return self._logits(x[None], x.shape[:2])[0, :, :h, :w].permute(1, 2, 0).cpu().numpy()
+        """Whole-image logits at the (resized) image's size, [h, w, classes] f32."""
+        return self.logits_batch([img], "whole")[0].cpu().numpy()
 
     def logits_slide(self, img: np.ndarray) -> np.ndarray:
-        """Slide-window logits, every crop in one batched call; logits
-        summed and divided by the crop count as mmseg's slide_inference."""
-        c, s = self.config.crop, self.config.stride
-        x, (h, w) = self._pad(img, size=c)
-        ph, pw = x.shape[:2]
-        ys = list(range(0, max(ph - c, 0) + 1, s))
-        xs = list(range(0, max(pw - c, 0) + 1, s))
-        if ys[-1] + c < ph:
-            ys.append(ph - c)
-        if xs[-1] + c < pw:
-            xs.append(pw - c)
-        crops = np.stack([x[y:y + c, xx:xx + c] for y in ys for xx in xs])
-        logits = self._logits(crops, (c, c))
-        acc = torch.zeros(logits.shape[1], ph, pw, device=logits.device)
-        cnt = torch.zeros(1, ph, pw, device=logits.device)
-        k = 0
-        for y in ys:
-            for xx in xs:
-                acc[:, y:y + c, xx:xx + c] += logits[k]
-                cnt[:, y:y + c, xx:xx + c] += 1.0
-                k += 1
-        return (acc / cnt)[:, :h, :w].permute(1, 2, 0).cpu().numpy()
+        """Slide-window logits, summed over the crops and divided by their
+        count as mmseg's slide_inference, [h, w, classes] f32."""
+        return self.logits_batch([img], "slide")[0].cpu().numpy()
 
     def evaluate(self, img: np.ndarray) -> np.ndarray:
-        """0-based label map, the reference ``SegNet.evaluate``."""
-        logits = self.logits_slide(img) if self.config.mode == "slide" else self.logits_whole(img)
-        return np.argmax(logits, axis=-1).astype(np.int32)
+        """0-based label map [H, W] uint8, the reference ``SegNet.evaluate``."""
+        return self.segment_batch([img])[0]
 
 
 def upernet_from_flax(variables, arch: str = "base") -> Dict[str, torch.Tensor]:

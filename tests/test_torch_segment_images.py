@@ -7,7 +7,9 @@ JAX converter), slide (crop 64, stride 43) and whole-image mode. Both
 write the same files at the same relative paths, and their labels agree
 on ≥ 99 % of pixels (the logits within 1e-4 of their largest magnitude,
 so only near-ties flip); ``LabelDirTeacher`` reads the port's maps back.
-The port's ``--checkpoint`` path gives exactly `segment_folder`'s maps.
+The port's ``--checkpoint`` path gives exactly `segment_folder`'s maps
+on the checkpoint's network as mmseg builds it (LayerNorm epsilon 1e-6,
+as with ``--scale``).
 """
 
 import functools
@@ -19,6 +21,7 @@ import torch
 
 from sfd2_torch.cli import segment_images as t_cli
 from sfd2_torch.models import upernet as t_up
+from sfd2_torch.models.convnext import ARCH_SETTINGS, MMSEG_LN_EPS
 from sfd2_torch.training.seg_teacher import LabelDirTeacher
 from sfd2_tpu.cli import segment_images as j_cli
 from sfd2_tpu.models import upernet as j_up
@@ -27,6 +30,7 @@ from test_torch_seg_teacher import KW, jax_vars, port_model  # noqa: F401  (fixt
 torch.set_num_threads(2)
 
 NAMES = ["db/1000.png", "q.png"]
+KW_DEPTHS = ARCH_SETTINGS[KW["arch"]]["depths"]
 
 
 @pytest.fixture(scope="module")
@@ -76,7 +80,10 @@ def test_segment_images_cli_reads_a_checkpoint(images, tmp_path, port_model,  # 
     n = t_cli.main(["--image_dir", str(images), "--out_dir", str(tmp_path / "cli"),
                     "--checkpoint", str(tmp_path / "seg.pth"), "--device", "cpu"])
     assert n == 2
-    seg = t_up.Segmentor(port_model, t_up.SegmentorConfig(), device="cpu")
+    # the checkpoint's network as mmseg builds it (LayerNorm epsilon 1e-6)
+    model = t_up.load_mmseg_state_dict(t_up.ConvNeXtUPerNet(ln_eps=MMSEG_LN_EPS),
+                                       port_model.state_dict())
+    seg = t_up.Segmentor(model, t_up.SegmentorConfig(), device="cpu")
     t_cli.segment_folder(seg, images, tmp_path / "fn")
     got, ref = _labels(tmp_path / "cli"), _labels(tmp_path / "fn")
     assert sorted(got) == NAMES
@@ -86,6 +93,36 @@ def test_segment_images_cli_reads_a_checkpoint(images, tmp_path, port_model,  # 
         with pytest.raises(RuntimeError, match="CUDA"):
             t_cli.main(["--image_dir", str(images), "--out_dir", str(tmp_path / "x"),
                         "--checkpoint", str(tmp_path / "seg.pth")])
+
+
+@pytest.mark.parametrize("flags, eps", [([], 1e-5), (["--scale", "128x64"], 1e-6),
+                                        (["--checkpoint"], 1e-6)])
+def test_segment_images_cli_builds_mmseg_layer_norm(images, tmp_path, port_model,  # noqa: F811
+                                                    monkeypatch, flags, eps):
+    """The CLI's network has mmseg's LayerNorm epsilon (1e-6) when it loads
+    a checkpoint or resizes as mmseg's test pipeline does; seeded weights
+    without ``--scale`` keep the JAX CLI's 1e-5."""
+    got = {}
+
+    def capture(seg, image_dir, out_dir):
+        got["seg"] = seg
+        return 0
+
+    monkeypatch.setattr(t_cli, "segment_folder", capture)
+    if flags == ["--checkpoint"]:
+        torch.save({"state_dict": port_model.state_dict()}, tmp_path / "seg.pth")
+        flags = flags + [str(tmp_path / "seg.pth")]
+        monkeypatch.setattr(t_up, "ConvNeXtUPerNet", functools.partial(t_up.ConvNeXtUPerNet, **KW))
+    else:
+        monkeypatch.setattr(t_up, "seeded_segmentor",
+                            functools.partial(t_up.seeded_segmentor, **KW))
+    t_cli.main(["--image_dir", str(images), "--out_dir", str(tmp_path / "x"), "--device", "cpu",
+                *flags])
+    seg = got["seg"]
+    # the stem's, three downsamples', four outputs' and every block's
+    norms = [m for m in seg.model.modules() if isinstance(m, torch.nn.LayerNorm)]
+    assert len(norms) == 1 + 3 + 4 + sum(KW_DEPTHS) and {m.eps for m in norms} == {eps}
+    assert seg.config.scale == ((128, 64) if "--scale" in flags else None)
 
 
 def test_label_dir_pairs_put_cropped_labels_in_the_batches(tmp_path):
@@ -111,6 +148,9 @@ def test_label_dir_pairs_put_cropped_labels_in_the_batches(tmp_path):
             i = int(rgb[0, 0, 2])
             self.calls += 1
             return labels[i].astype(np.int32) - 1
+
+        def segment_batch(self, images):  # segment_folder's entry
+            return np.stack([self.evaluate(im) for im in images])
 
     for i, img in enumerate(images):
         cv2.imwrite(str(tmp_path / f"im{i}.png"), (img[..., ::-1] * 255).round().astype(np.uint8))
