@@ -185,6 +185,7 @@ from sfd2_torch.ops.cuda_match_ratio import mutual_nn_ratio_match_cuda
 from sfd2_torch.ops.cuda_nn_argmax import nn_argmax_cuda
 from sfd2_torch.ops.cuda_nn_top2 import nn_top2_cuda
 from sfd2_torch.ops.cuda_stem import StemWeights, fused_stem_cuda, stem_launch, stem_lib
+from sfd2_torch.ops.cuda_twoview import ransac as twoview_ransac
 from sfd2_torch.ops.gather import gather_rows_plain
 from sfd2_torch.ops.matching import (mutual_nn_match, mutual_nn_match_with_labels,
                                     mutual_nn_ratio_match, nn_argmax, nn_top2, tiled_route)
@@ -194,12 +195,13 @@ from sfd2_torch.parallel.distributed import convert_sync_batchnorm, init_process
 from sfd2_torch.ops.stem import fused_stem_apply, repack_stem_params, unpack_stem_params
 from sfd2_torch.pipeline.extract import EXTRACTION_CONFS, ExtractionConfig, Extractor
 from sfd2_torch.scripts.bench import batched_breakdown
-from sfd2_torch.utils import profiling
+from sfd2_torch.utils import profiling, twoview_parity
 from sfd2_torch.pipeline.extractors import BaselineConfig, dynamic_load, seeded_init_
 from sfd2_torch.pipeline.match import MatchConfig, match_pairs
 from sfd2_torch.scripts import bench_scale
 from sfd2_torch.sfm import pipeline as sfm_pipeline
 from sfd2_torch.sfm import reconstruction as sfm_reconstruction
+from sfd2_torch.sfm import twoview as sfm_twoview
 from sfd2_torch.sfm.ba import BAProblem, bundle_adjust, lm_result, lm_setup
 from sfd2_torch.sfm.map_index import MapIndex
 from sfd2_torch.sfm.pairs import pairs_from_covisibility, pairs_from_retrieval
@@ -208,7 +210,7 @@ from sfd2_torch.sfm.reconstruction import ReconstructionConfig, incremental_reco
 from sfd2_torch.serving.server import LocalizationService, make_server
 from sfd2_torch.sfm.tracks import track_edges, union_find_roots_plain
 from sfd2_torch.utils.profiling import trace
-from sfd2_torch.utils.synth import build_corridor_scene
+from sfd2_torch.utils.synth import build_corridor_scene, two_view_pairs
 from sfd2_torch.models.superpoint import SuperPoint
 from sfd2_torch.models.upernet import Segmentor, SegmentorConfig, seeded_segmentor, slide_plan
 from sfd2_torch.ops.segment_tail import segment_tail, segment_tail_plain, tail_plan
@@ -257,6 +259,11 @@ KERNELS = {
     # takes the argmax on the host.
     "segment_tail": dict(route="triton", source="sfd2_torch/ops/segment_tail.py",
                          replaces=None, wrapper=segment_tail),
+    # No TPU kernel's port: the JAX package vmaps F-RANSAC and leaves it to
+    # XLA. One launch record is one call: twoview_list, twoview_score and
+    # twoview_refine.
+    "twoview": dict(route="cuda", source="sfd2_torch/csrc/twoview.cu", replaces=None,
+                    wrapper=twoview_ransac),
 }
 
 
@@ -403,6 +410,8 @@ def phase_build(results):
         dump = cuda_build.sass(name)
         sass[name] = {op: dump.count(op) for op in ("HGMMA", "HMMA", "FFMA")}
         require(sass[name]["HGMMA"] > 0, f"{name}: no HGMMA instruction in its library")
+    results["ptxas"] = {name: [ln.strip() for ln in log.splitlines()
+                               if "registers" in ln or "spill" in ln] for name, log in logs.items()}
     emit("build", seconds=round(time.perf_counter() - t0, 3),
          sources=cuda_build.kernel_sources(), native_build_s=native_build_s, ptxas=ptxas,
          sass=sass)
@@ -871,6 +880,126 @@ def phase_kernel_segment_tail(results):
 def no_tail_case(*key):
     raise AssertionError(f"segment_tail: a main path launched {list(key)}, which "
                          f"tail_cases() does not give: add its geometry there")
+
+
+# Two-view F-RANSAC (csrc/twoview.cu): the kernel and the plain version on
+# the same samples, held by the rules of sfd2_torch/utils/twoview_parity.py
+# as tests/test_torch_twoview_kernel.py holds them: every hypothesis' MSAC
+# (the float32 fit is decided by rounding in its rank-2 projection, so
+# within a quarter of the plain version's own gap to float64, medians and
+# 90th percentiles), the same success on every pair, inlier decisions as
+# near the planted truth as the plain version's; and the local optimisation
+# alone from a given F, in normalised coordinates where its steps are taken.
+TWOVIEW_FIT_FLOP = 3_500  # one eight-point fit: Gram, Cholesky, 4 rounds, 3x3 steps
+TWOVIEW_SAMPSON_FLOP = 34  # one clamped Sampson term (an FMA counted as 2)
+
+
+def twoview_cost(b: int, h: int, n: int, n_valid: int) -> tuple:
+    """(FLOP, bytes) of one call on b pairs of n padded matches, n_valid
+    valid in all: every fit, every hypothesis' MSAC over the valid matches,
+    and per pair the refinement's 6 passes over its matches (MSAC 6 times,
+    weights, centroids, scales and the 45 Gram entries 4 times); inputs
+    read once, the mask, count and F written once."""
+    lo = 6 * TWOVIEW_SAMPSON_FLOP * n_valid + 4 * 140 * n_valid
+    flops = b * h * TWOVIEW_FIT_FLOP + h * n_valid * TWOVIEW_SAMPSON_FLOP + lo
+    return flops, b * n * (2 * 8 + 1) + b * (n + 1 + 4 + 36)
+
+
+def twoview_case(b: int, h: int, n: int, sampled: bool = True, mask: float | None = None,
+                 device="cuda") -> dict:
+    """The kernels at [b pairs, h hypotheses, n matches] against the plain
+    version: compared on at least 48 pairs (one pair's winner is a draw of
+    rounding for both versions; the mean share of correct inlier decisions
+    over 16 pairs moved by -0.011 to +0.02 between them, so over 48 it is
+    held within 0.02), the samples
+    given (the in-kernel draw is `twoview_sampler`'s); timed on b: ``ms``
+    the main path's call (the key drawn, both kernels), ``plain_ms`` the
+    plain version on the same samples. ``max_abs_err`` is the largest
+    relative MSAC gap of a hypothesis from the plain version's."""
+    rng = np.random.default_rng(SEED + 24)
+    bq = max(b, 48)
+    xy1, xy2, valid, truth = (torch.from_numpy(a).to(device)
+                              for a in two_view_pairs(rng, bq, n, mask=mask))
+    what = f"twoview at {[b, h, n]}"
+    gen = lambda: torch.Generator(device).manual_seed(SEED)  # noqa: E731
+    idx = sfm_twoview.sample_eight(valid, h, gen())
+    got = sfm_twoview.verify_fundamental_ransac_core(xy1, xy2, valid, idx)
+    plain = functools.partial(sfm_twoview.verify_fundamental_ransac_plain, xy1, xy2, valid, idx)
+    ref = plain()
+    require(torch.equal(got.success, ref.success), f"{what}: success differs")
+    near = lambda r: float(((r.inliers == truth) | ~valid).float().mean())  # noqa: E731
+    require(near(got) >= near(ref) - 0.02, f"{what}: inliers {near(got)} vs plain {near(ref)}")
+    g = twoview_parity.hypothesis_gaps(xy1, xy2, valid, idx)
+    quant = twoview_parity.summary(g)
+    row = dict(shape=[b, h, n], compared_pairs=bq, sampled=sampled,
+               max_abs_err=float(g["kp"].max()), msac_gap_q50=quant["kp_q50"],
+               msac_gap_q90=quant["kp_q90"], plain_f32_gap_q50=quant["pd_q50"],
+               plain_f32_gap_q90=quant["pd_q90"], float64_gap_q50=quant["kd_q50"],
+               float64_gap_q90=quant["kd_q90"],
+               inlier_agree=float(((got.inliers == ref.inliers) | ~valid).float().mean()),
+               truth_agree=near(got), plain_truth_agree=near(ref))
+    fails = twoview_parity.score_failures(g)
+    require(not fails, f"{what}: {fails} {row}")
+    xy1, xy2, valid, idx = xy1[:b], xy2[:b], valid[:b], idx[:b]
+    plain = functools.partial(sfm_twoview.verify_fundamental_ransac_plain, xy1, xy2, valid, idx)
+    flops, nbytes = twoview_cost(b, h, n, int(valid.sum()))
+    bound_ms, bound_by = bound(flops, nbytes)
+    call = lambda: sfm_twoview.verify_fundamental_ransac(xy1, xy2, valid, 4.0, gen(),  # noqa: E731
+                                                          num_hypotheses=h)
+    row.update(ms=cuda_ms(call), given_samples_ms=cuda_ms(
+                   lambda: sfm_twoview.verify_fundamental_ransac_core(xy1, xy2, valid, idx)),
+               plain_ms=cuda_ms(plain, warmup=1, iters=3), library_ms=None,
+               kernel_device_ms=device_ms_per_call(call), gflop=flops / 1e9,
+               mbytes=nbytes / 1e6, bound_ms=bound_ms, bound_by=bound_by,
+               bound_peak="f32 67 TFLOP/s (CUDA cores), HBM 3.35 TB/s")
+    emit("kernel_twoview", **row)
+    return row
+
+
+def twoview_lo_case(mask: float | None = None, device="cuda") -> dict:
+    """``twoview_refine`` alone (``cuda_twoview.refine``) from an eight-point
+    start of planted inliers, 128 pairs of 1,024 matches in normalised
+    coordinates, against the plain local optimisation in float32 and
+    float64 from the same F: ``twoview_parity.lo_failures``."""
+    kw = {} if mask is None else dict(mask=mask)
+    case = twoview_parity.lo_case(np.random.default_rng(SEED + 26), 128, 1024, device, **kw)
+    g = twoview_parity.lo_gaps(*case)
+    row = dict(shape=[128, 1024], mask=mask, lo_improved=g["taken"],
+               plain_lo_improved=g["plain_taken"], **twoview_parity.summary(g),
+               max_abs_err=float(g["kp"].max()))
+    fails = twoview_parity.lo_failures(g)
+    require(not fails, f"twoview local optimisation: {fails} {row}")
+    emit("kernel_twoview_lo", **row)
+    return row
+
+
+def twoview_sampler(device="cuda") -> dict:
+    """The in-kernel draw at the map build's shape: 8 distinct valid
+    positions a hypothesis, on an 85 % random mask."""
+    b, h, n = 32, 2048, 1024
+    xy1, xy2, valid, _ = (torch.from_numpy(a).to(device) for a in
+                          two_view_pairs(np.random.default_rng(SEED + 25), b, n, mask=0.85))
+    idx = torch.empty((b, h, 8), dtype=torch.int32, device=device)
+    key = sfm_twoview.cuda_twoview.draw_key(torch.Generator(device).manual_seed(SEED), device)
+    twoview_ransac(xy1, xy2, valid, 4.0, 15, 0.1, key=key, num_hypotheses=h, idx_out=idx)
+    srt = idx.long().sort(-1).values
+    distinct = bool((srt[..., 1:] != srt[..., :-1]).all())
+    on_valid = bool(torch.gather(valid, 1, idx.long().view(b, -1)).all())
+    require(distinct and on_valid, f"twoview sampler: distinct {distinct}, valid {on_valid}")
+    return dict(distinct=distinct, on_valid=on_valid)
+
+
+def phase_kernel_twoview(results):
+    """The map-build cell's batch (32 pairs, every match valid) and
+    ``bench.py``'s verify stage (16 pairs, 85 % random masks), 2,048
+    hypotheses and 1,024 matches each."""
+    sampler = twoview_sampler()
+    rows = {(32, 2048, 1024, True): twoview_case(32, 2048, 1024),
+            (16, 2048, 1024, True): twoview_case(16, 2048, 1024, mask=0.85)}
+    results["twoview"] = rows
+    lo = [twoview_lo_case(), twoview_lo_case(mask=0.85)]
+    emit("kernel_twoview_build", ptxas=results["ptxas"].get("twoview"), sampler=sampler,
+         lo_improved=[r["lo_improved"] for r in lo])
 
 
 # The first tiled bank sizes (ops/matching.py::tiled_route): at C=128, and
@@ -3230,8 +3359,8 @@ def phase_map_build(results, store, scene):
     results["main_path"].append(counts)
     emit("map_build", **out, launches={k: sum(v.values()) for k, v in counts.items()},
          launch_shapes=launches_by_shape(counts))
-    require(counts["mutual_nn_match"] and counts["gather_rows"],
-            "map_build: K2 and K3 must both run")
+    require(counts["mutual_nn_match"] and counts["gather_rows"] and counts["twoview"],
+            "map_build: K2, K3 and the two-view kernels must run")
     check_ba_graph(rec, "map_build")
 
 
@@ -3855,6 +3984,7 @@ def main():
     phase_kernel_nn(results, "nn_argmax")
     phase_kernel_nn(results, "nn_top2")
     phase_kernel_segment_tail(results)
+    phase_kernel_twoview(results)
     phase_bench(results)
     phase_grouped_conv(results)
     # The main paths: extract (r1024, then multi-scale labelled r1600),
@@ -3890,7 +4020,8 @@ def main():
     cases = {"fused_stem": stem_case, "mutual_nn_match": match_case,
              "gather_rows": gather_case, "mutual_nn_ratio_match": ratio_case,
              "nn_argmax": functools.partial(nn_case, "nn_argmax"),
-             "nn_top2": functools.partial(nn_case, "nn_top2"), "segment_tail": no_tail_case}
+             "nn_top2": functools.partial(nn_case, "nn_top2"), "segment_tail": no_tail_case,
+             "twoview": twoview_case}
     for name, counts in shapes.items():
         for key in counts:
             if key not in results[name]:

@@ -189,29 +189,39 @@ class MatchStore:
         for k, arr in data.items():
             grp.create_dataset(k, data=arr)
 
-    def _read_group(self, key: str):
+    def _read_group(self, key: str, with_scores: bool = True):
         grp = self._store()[key]
         m = np.asarray(grp["matches0"][()]).astype(np.int64)
+        if not with_scores:
+            return m, None
         s = (np.asarray(grp["matching_scores0"][()]).astype(np.float32)
              if "matching_scores0" in grp else np.zeros(len(m), np.float32))
         return m, s
 
-    def read(self, name0, name1, num_keypoints0: int | None = None):
+    def read(self, name0, name1, num_keypoints0: int | None = None, with_scores: bool = True):
         """(matches0 [N0] int64, scores0 [N0] float32); reading a reversed
         pair inverts the match direction. For reversed reads, pass
         `num_keypoints0` (name0's keypoint count) to size the output;
-        otherwise it covers only up to the largest matched index."""
+        otherwise it covers only up to the largest matched index. Without
+        `with_scores` the scores are neither read nor converted from their
+        stored float16 (most of a read's time) and come back as None."""
         key = names_to_pair(name0, name1)
         if key in self._store():
-            return self._read_group(key)
-        m_rev, s_rev = self._read_group(names_to_pair(name1, name0))
+            return self._read_group(key, with_scores)
+        m_rev, s_rev = self._read_group(names_to_pair(name1, name0), with_scores)
         # Invert: matches0_fwd[j] = i where m_rev[i] = j.
-        max_idx = int(m_rev.max()) + 1 if m_rev.size and m_rev.max() >= 0 else 0
-        n0 = max(num_keypoints0 if num_keypoints0 is not None else max_idx, 0)
+        src = np.flatnonzero(m_rev >= 0)
+        dst = m_rev[src]
+        if num_keypoints0 is None:
+            n0 = int(dst.max()) + 1 if len(dst) else 0
+        else:
+            n0 = max(num_keypoints0, 0)
+            keep = dst < n0
+            src, dst = src[keep], dst[keep]
         m = np.full(n0, -1, np.int64)
+        m[dst] = src
+        if not with_scores:
+            return m, None
         s = np.zeros(n0, np.float32)
-        src = np.nonzero(m_rev >= 0)[0]
-        src = src[m_rev[src] < n0]
-        m[m_rev[src]] = src
-        s[m_rev[src]] = s_rev[src]
+        s[dst] = s_rev[src]
         return m, s

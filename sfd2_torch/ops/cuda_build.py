@@ -3,11 +3,11 @@
 Each ``sfd2_torch/csrc/<name>.cu`` is compiled on its own for ``sm_90a``
 into ``sfd2_torch/_build/lib<name>-<hash>.so`` (the hash covers the
 source, the shared ``csrc/*.cuh`` headers and the flags, so an edited
-source or header is rebuilt) and loaded with
-ctypes. Nothing is built when a module is imported: ``load`` builds on
-first use, ``build`` compiles several sources in parallel (one nvcc
-process each, all started together). ``defines`` (``-D`` names) build a
-variant of a source beside it, under a hash of its own.
+source or header is rebuilt) and loaded with ctypes; ``SOURCE_FLAGS``
+adds a source's own flags. Nothing is built when a module is imported:
+``load`` builds on first use, ``build`` compiles several sources in
+parallel (one nvcc process each, all started together). ``defines`` (``-D``
+names) build a variant of a source beside it, under a hash of its own.
 """
 
 from __future__ import annotations
@@ -25,6 +25,10 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# twoview.cu mirrors the rounding of torch's elementwise ops, one rounding
+# per op: no product and sum contracted into an FMA that the source does
+# not write as fmaf (csrc/twoview.cu says why).
+SOURCE_FLAGS: Dict[str, list] = {"twoview": ["-fmad=false"]}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}  # by name, "+"-joined with a variant's defines
@@ -37,14 +41,14 @@ def _nvcc() -> str:
     return exe
 
 
-def _flags(defines: Sequence[str]) -> list[str]:
-    return [*NVCC_FLAGS, *(f"-D{d}" for d in defines)]
+def _flags(name: str, defines: Sequence[str]) -> list[str]:
+    return [*NVCC_FLAGS, *SOURCE_FLAGS.get(name, ()), *(f"-D{d}" for d in defines)]
 
 
 def _paths(name: str, defines: Sequence[str] = ()):
     src = CSRC / f"{name}.cu"
     headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
-    digest = hashlib.sha256(src.read_bytes() + headers + " ".join(_flags(defines)).encode())
+    digest = hashlib.sha256(src.read_bytes() + headers + " ".join(_flags(name, defines)).encode())
     return src, BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
@@ -64,7 +68,7 @@ def build(names: Iterable[str] | None = None, defines: Sequence[str] = ()) -> Di
         if out.exists():
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *_flags(defines), "-o", str(tmp), str(src)]
+        cmd = [_nvcc(), *_flags(name, defines), "-o", str(tmp), str(src)]
         jobs.append((name, out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     logs: Dict[str, str] = {}

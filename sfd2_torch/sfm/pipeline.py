@@ -30,6 +30,7 @@ from sfd2_torch.sfm.tracks import build_tracks
 from sfd2_torch.sfm.triangulation import triangulate_tracks
 from sfd2_torch.sfm.twoview import verify_fundamental_ransac
 from sfd2_torch.utils.device import resolve_device
+from sfd2_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -57,52 +58,63 @@ def geometric_verification(features: FeatureStore, matches: MatchStore,
 
     Pairs are grouped into device batches of padded match arrays — one
     batched F-RANSAC per group. Each group draws its samples from a
-    generator seeded with the number of pairs verified before it."""
+    generator seeded with the number of pairs verified before it.
+
+    Spans (``utils/profiling.py``), one ``verify.batch`` per group (tags
+    ``pairs``, ``matches``) holding ``verify.prep`` (the host's padding and
+    the upload), ``verify.ransac`` (the enqueue; F-RANSAC tags it with
+    ``hypotheses``) and ``verify.fetch`` (the wait, and the inlier masks
+    back)."""
     dev = resolve_device(device)
     results: List[Tuple[str, str, np.ndarray]] = []
     kp_cache: Dict[str, np.ndarray] = {}
 
     def kpts(name):
         if name not in kp_cache:
-            kp_cache[name] = features.read(name).keypoints
+            kp_cache[name] = np.asarray(features.read(name).keypoints, np.float32)
         return kp_cache[name]
 
-    batch_xy1, batch_xy2, batch_valid, batch_meta = [], [], [], []
+    batch = []  # (name0, name1, idx_pairs [n, 2]) of the pending group
+    # One host buffer for every group (the upload has read it before the
+    # next group fills it): both views' points, then the mask.
+    xy = np.zeros((2, cfg.verify_batch, max_matches, 2), np.float32)
+    val = np.zeros((cfg.verify_batch, max_matches), bool)
 
     def flush():
-        if not batch_xy1:
+        if not batch:
             return
-        gen = torch.Generator(device=dev).manual_seed(len(results))
-        res = verify_fundamental_ransac(
-            torch.from_numpy(np.stack(batch_xy1)).to(dev),
-            torch.from_numpy(np.stack(batch_xy2)).to(dev),
-            torch.from_numpy(np.stack(batch_valid)).to(dev), cfg.verify_threshold, gen,
-            min_inliers=cfg.verify_min_inliers, min_inlier_ratio=cfg.verify_min_inlier_ratio)
-        packed = torch.cat([res.success[:, None], res.inliers], dim=1).cpu().numpy()
-        for bi, (n0, n1, idx_pairs) in enumerate(batch_meta):
+        nb = len(batch)
+        with span("verify.batch", pairs=nb, matches=sum(len(m) for *_, m in batch)):
+            with span("verify.prep"):
+                for bi, (n0, n1, idx_pairs) in enumerate(batch):
+                    n = len(idx_pairs)
+                    np.take(kpts(n0), idx_pairs[:, 0], axis=0, out=xy[0, bi, :n])
+                    np.take(kpts(n1), idx_pairs[:, 1], axis=0, out=xy[1, bi, :n])
+                    xy[:, bi, n:] = 0.0
+                    val[bi, :n] = True
+                    val[bi, n:] = False
+                xy_d = torch.from_numpy(np.ascontiguousarray(xy[:, :nb])).to(dev)
+                val_d = torch.from_numpy(val[:nb]).to(dev)
+            with span("verify.ransac"):
+                gen = torch.Generator(device=dev).manual_seed(len(results))
+                res = verify_fundamental_ransac(
+                    xy_d[0], xy_d[1], val_d, cfg.verify_threshold, gen,
+                    min_inliers=cfg.verify_min_inliers,
+                    min_inlier_ratio=cfg.verify_min_inlier_ratio)
+            with span("verify.fetch"):
+                packed = torch.cat([res.success[:, None], res.inliers], dim=1).cpu().numpy()
+        for bi, (n0, n1, idx_pairs) in enumerate(batch):
             if packed[bi, 0]:
                 results.append((n0, n1, idx_pairs[packed[bi, 1:1 + len(idx_pairs)]]))
-        for lst in (batch_xy1, batch_xy2, batch_valid, batch_meta):
-            lst.clear()
+        batch.clear()
 
     for n0, n1 in pairs:
-        m, _ = matches.read(n0, n1)
+        m, _ = matches.read(n0, n1, with_scores=False)
         src = np.nonzero(m >= 0)[0]
         if len(src) < 8:
             continue
-        idx_pairs = np.stack([src, m[src]], axis=1)[:max_matches]
-        n = len(idx_pairs)
-        xy1 = np.zeros((max_matches, 2), np.float32)
-        xy2 = np.zeros((max_matches, 2), np.float32)
-        val = np.zeros(max_matches, bool)
-        xy1[:n] = kpts(n0)[idx_pairs[:, 0]]
-        xy2[:n] = kpts(n1)[idx_pairs[:, 1]]
-        val[:n] = True
-        batch_xy1.append(xy1)
-        batch_xy2.append(xy2)
-        batch_valid.append(val)
-        batch_meta.append((n0, n1, idx_pairs))
-        if len(batch_xy1) >= cfg.verify_batch:
+        batch.append((n0, n1, np.stack([src, m[src]], axis=1)[:max_matches]))
+        if len(batch) >= cfg.verify_batch:
             flush()
     flush()
     return results

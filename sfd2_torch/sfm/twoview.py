@@ -19,6 +19,16 @@ version clamps the pivot and returns a finite fit), and NaN fits lose.
 Sampling draws Gumbel-top-8 sets from a ``torch.Generator`` (the JAX
 package used ``jax.random``); ``verify_fundamental_ransac_core`` takes any
 ``sample_idx [B, H, 8]``, so both packages can be fed the same samples.
+
+The route is chosen by what the inputs show: float32 CUDA tensors run as
+hand-written CUDA kernels (``csrc/twoview.cu``; samples drawn in the kernel
+with Philox under a key from the generator, the same distribution: 8
+distinct valid matches, uniformly), at any number of matches; the CPU and
+float64 run ``verify_fundamental_ransac_plain``, the batched eager version.
+Masks are taken as bool on both routes. Counters (``utils/profiling.py``):
+``twoview.kernel_batches``, ``twoview.plain_batches``, and
+``twoview.hypotheses`` (B × H scored; also added to the ``hypotheses`` tag
+of the span open around the call).
 """
 
 from __future__ import annotations
@@ -27,6 +37,9 @@ import math
 from typing import NamedTuple
 
 import torch
+
+from sfd2_torch.ops import cuda_twoview
+from sfd2_torch.utils import profiling
 
 # Sampson errors are scored for at most this many (pair, hypothesis,
 # match) entries at a time, to bound the temporaries.
@@ -231,13 +244,72 @@ def _msac(f, xy1, xy2, valid, thr2):
     return torch.sum(errs.masked_fill_(~valid, thr2), dim=-1)
 
 
+def _kernel_route(xy1, xy2) -> bool:
+    """True where the CUDA kernels take the batch: float32 points on a CUDA
+    device."""
+    return xy1.is_cuda and xy1.dtype == torch.float32 and xy2.dtype == torch.float32
+
+
+def _ransac(xy1, xy2, valid, num_hypotheses, threshold, min_inliers, min_inlier_ratio, *,
+            sample_idx=None, generator=None) -> TwoViewResult:
+    """Routes one batch and counts it: the kernels on ``_kernel_route``, else
+    the plain version; samples drawn (in the kernel, or by ``sample_eight``)
+    where `sample_idx` is None."""
+    valid = valid.bool()
+    kernel = _kernel_route(xy1, xy2)
+    _count(kernel, valid.shape[0], num_hypotheses)
+    if kernel:
+        key = None if sample_idx is not None else cuda_twoview.draw_key(generator, xy1.device)
+        return TwoViewResult(*cuda_twoview.ransac(xy1, xy2, valid, threshold, min_inliers,
+                                                  min_inlier_ratio, key=key,
+                                                  sample_idx=sample_idx,
+                                                  num_hypotheses=num_hypotheses))
+    if sample_idx is None:
+        sample_idx = sample_eight(valid, num_hypotheses, generator)
+    return verify_fundamental_ransac_plain(xy1, xy2, valid, sample_idx, threshold, min_inliers,
+                                           min_inlier_ratio)
+
+
+def _count(kernel: bool, b: int, h: int) -> None:
+    profiling.count("twoview.kernel_batches" if kernel else "twoview.plain_batches")
+    profiling.count("twoview.hypotheses", b * h, tag="hypotheses")
+
+
 def verify_fundamental_ransac_core(xy1, xy2, valid, sample_idx, threshold: float = 4.0,
                                    min_inliers: int = 15,
                                    min_inlier_ratio: float = 0.1) -> TwoViewResult:
     """F-RANSAC on given hypotheses: xy1/xy2 [B, N, 2] padded matches,
     valid [B, N] bool, sample_idx [B, H, 8]. Thresholds mirror the
     reference's colmap invocation (max_error 4, min_inlier_ratio 0.1,
-    min_num_inliers 15; ``hloc/triangulation.py:118-124``)."""
+    min_num_inliers 15; ``hloc/triangulation.py:118-124``). The CUDA
+    kernels where ``_kernel_route`` holds, else the plain version."""
+    return _ransac(xy1, xy2, valid, sample_idx.shape[1], threshold, min_inliers,
+                   min_inlier_ratio, sample_idx=sample_idx)
+
+
+def local_optimise(f, xy1, xy2, valid, thr2: float):
+    """The plain version's 4 steps of local optimisation from F [B, 3, 3]:
+    each an iterative least-squares re-fit on soft-weighted inliers
+    (1 / (1 + e / thr2)), taken where MSAC improves. Returns (F, its MSAC
+    [B])."""
+    cur = _msac(f, xy1, xy2, valid, thr2)
+    for _ in range(4):
+        e = sampson_error(f, xy1, xy2)
+        wts = torch.where((e <= thr2) & valid, 1.0 / (1.0 + e / thr2), 0.0).to(xy1.dtype)
+        f_ls = _fit_fundamental_lanes(xy1, xy2, wts)
+        ok = torch.isfinite(f_ls).flatten(-2).all(-1)
+        cand = torch.where(ok, _msac(f_ls, xy1, xy2, valid, thr2), torch.inf)
+        take = cand < cur
+        f = torch.where(take[:, None, None], f_ls, f)
+        cur = torch.minimum(cand, cur)
+    return f, cur
+
+
+def verify_fundamental_ransac_plain(xy1, xy2, valid, sample_idx, threshold: float = 4.0,
+                                    min_inliers: int = 15,
+                                    min_inlier_ratio: float = 0.1) -> TwoViewResult:
+    """``verify_fundamental_ransac_core`` as batched eager torch ops, on any
+    device and dtype."""
     b, h = sample_idx.shape[:2]
     thr2 = threshold * threshold
     rows = torch.arange(b, device=xy1.device)[:, None, None]
@@ -255,18 +327,7 @@ def verify_fundamental_ransac_core(xy1, xy2, valid, sample_idx, threshold: float
     msac = torch.where(finite, msac, torch.inf)
     f = fs[torch.arange(b, device=xy1.device), torch.argmin(msac, dim=-1)]
 
-    # Local optimisation: iterative least-squares re-fit on soft-weighted
-    # inliers, accepted on MSAC improvement.
-    cur = _msac(f, xy1, xy2, valid, thr2)
-    for _ in range(4):
-        e = sampson_error(f, xy1, xy2)
-        wts = torch.where((e <= thr2) & valid, 1.0 / (1.0 + e / thr2), 0.0).to(xy1.dtype)
-        f_ls = _fit_fundamental_lanes(xy1, xy2, wts)
-        ok = torch.isfinite(f_ls).flatten(-2).all(-1)
-        cand = torch.where(ok, _msac(f_ls, xy1, xy2, valid, thr2), torch.inf)
-        take = cand < cur
-        f = torch.where(take[:, None, None], f_ls, f)
-        cur = torch.minimum(cand, cur)
+    f, _ = local_optimise(f, xy1, xy2, valid, thr2)
 
     inliers = (sampson_error(f, xy1, xy2) <= thr2) & valid
     num = inliers.sum(-1).to(torch.int32)
@@ -280,12 +341,12 @@ def verify_fundamental_ransac(xy1, xy2, valid, threshold: float = 4.0,
                               num_hypotheses: int = 2048, min_inliers: int = 15,
                               min_inlier_ratio: float = 0.1) -> TwoViewResult:
     """F-RANSAC over padded matches of B pairs: xy1/xy2 [B, N, 2], valid
-    [B, N] bool."""
+    [B, N] bool. On the kernels' route the samples are drawn in the kernel
+    under a key drawn from `generator`; else by ``sample_eight``."""
     if generator is None:
         generator = torch.Generator(device=xy1.device).manual_seed(0)
-    idx = sample_eight(valid, num_hypotheses, generator)
-    return verify_fundamental_ransac_core(xy1, xy2, valid, idx, threshold, min_inliers,
-                                          min_inlier_ratio)
+    return _ransac(xy1, xy2, valid, num_hypotheses, threshold, min_inliers, min_inlier_ratio,
+                   generator=generator)
 
 
 # ---------------------------------------------------------------------------

@@ -7,11 +7,16 @@ descriptors, DB cameras sweeping along x, and held-out queries with
 ground-truth poses. Given the same arguments it draws the same numbers as
 the JAX package's builder. The features go into a caller-owned
 ``FeatureStore``, which may be the in-memory dict store.
+
+``two_view_pairs`` (no JAX counterpart) draws padded match batches of
+two-view geometry with planted outliers, for F-RANSAC's kernel tests and
+``chip_smoke.py``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import List, Tuple
 
 import numpy as np
@@ -131,3 +136,42 @@ def build_corridor_scene(
 
     return SynthScene(map_index=MapIndex(cameras, images, points3d), cam_model="PINHOLE",
                       width=width, height=height, cam_params=cam_params, queries=queries)
+
+
+def _two_view_camera(rng):
+    """A second camera turned by 2–15° about a random axis and moved by
+    about a metre, mostly sideways."""
+    w = rng.normal(size=3)
+    w *= math.radians(rng.uniform(2, 15)) / np.linalg.norm(w)
+    th = np.linalg.norm(w)
+    k = np.array([[0, -w[2], w[1]], [w[2], 0, -w[0]], [-w[1], w[0], 0]]) / th
+    return np.eye(3) + math.sin(th) * k + (1 - math.cos(th)) * k @ k, rng.normal(size=3) * [1, .3, .3]
+
+
+def two_view_pairs(rng: np.random.Generator, b: int, n: int, outliers=(0.05, 0.3), n_valid=None,
+                   mask: float | None = None, all_out: int = 0):
+    """b seeded pairs of n padded matches for two-view verification, between
+    two 1024×768 views (f = 800, depths 3–20 m, 0.5 px noise): xy1, xy2
+    [b, n, 2] float32, a share of each pair's matches drawn from `outliers`
+    (all of them in the last `all_out` pairs) moved to random pixels; valid
+    [b, n] bool, the first `n_valid` (all by default) or each position with
+    probability `mask`; truth [b, n] bool, the matches left in place."""
+    xy1 = np.zeros((b, n, 2), np.float32)
+    xy2 = np.zeros((b, n, 2), np.float32)
+    truth = np.zeros((b, n), bool)
+    for i in range(b):
+        z = rng.uniform(3, 20, n)
+        u = rng.uniform((0, 0), (1024, 768), (n, 2))
+        pts = np.concatenate([(u - [512, 384]) / 800.0 * z[:, None], z[:, None]], 1)
+        rot, t = _two_view_camera(rng)
+        q = pts @ rot.T + t
+        p2 = 800.0 * q[:, :2] / q[:, 2:] + [512, 384] + rng.normal(0, 0.5, u.shape)
+        bad = rng.random(n) < (1.0 if i >= b - all_out else rng.uniform(*outliers))
+        p2[bad] = rng.uniform((0, 0), (1024, 768), (int(bad.sum()), 2))
+        xy1[i], xy2[i], truth[i] = u + rng.normal(0, 0.5, u.shape), p2, ~bad
+    if mask is not None:
+        valid = rng.random((b, n)) < mask
+    else:
+        counts = np.full(b, n) if n_valid is None else np.broadcast_to(n_valid, (b,))
+        valid = np.arange(n)[None] < counts[:, None]
+    return xy1, xy2, valid, truth

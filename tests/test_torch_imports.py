@@ -56,7 +56,8 @@ def test_port_lists_the_slice_modules():
                  "training.data", "training.ap_loss", "training.sampler",
                  "training.extra_losses", "training.losses", "training.train_step",
                  "training.trainer", "training.seg_teacher", "utils.config",
-                 "utils.tb_writer", "cli.train", "io.h5file", "scripts.bench_scale"):
+                 "utils.tb_writer", "cli.train", "io.h5file", "scripts.bench_scale",
+                 "ops.cuda_twoview", "utils.twoview_parity"):
         assert f"sfd2_torch.{name}" in mods, name
 
 
@@ -98,10 +99,12 @@ def test_kernel_sources_are_in_the_package():
     from sfd2_torch.ops import cuda_build
 
     assert cuda_build.kernel_sources() == ["gather", "match", "match_ratio", "nn_argmax",
-                                           "nn_top2", "stem"]
+                                           "nn_top2", "stem", "twoview"]
     for name in cuda_build.kernel_sources():
         text = (cuda_build.CSRC / f"{name}.cu").read_text()
-        assert "Replaces: sfd2_tpu/ops/pallas_" in text  # header note
+        # header note: the Pallas kernel it replaces, or that it replaces none
+        assert ("Replaces: sfd2_tpu/ops/pallas_" in text) != (name == "twoview")
+        assert "Replaces: no TPU kernel." in text or name != "twoview"
         included = "".join((cuda_build.CSRC / h).read_text()
                            for h in re.findall(r'#include "(\w+\.cuh)"', text))
         assert 'extern "C"' in text and "cudaGetLastError" in text + included

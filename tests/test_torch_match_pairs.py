@@ -10,6 +10,8 @@ is held against the JAX ``match_pairs`` on the 6-camera scene of
 ``tests/test_map_building.py``: identical ``matches0`` for NNM and NNR.
 """
 
+import contextlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -201,3 +203,21 @@ def test_match_store_reads_reversed_pairs_like_jax(tmp_path):
     assert store.has_pair("b/y.jpg", "a/x.jpg")
     assert names_to_pair("a/x.jpg", "b/y.jpg") == jfs.names_to_pair("a/x.jpg", "b/y.jpg")
     assert set(MATCHER_CONFS) == set(jmatch.MATCHER_CONFS)
+
+
+@pytest.mark.parametrize("args", [("a/x.jpg", "b/y.jpg"), ("b/y.jpg", "a/x.jpg", 5),
+                                  ("b/y.jpg", "a/x.jpg")])
+@pytest.mark.parametrize("on_disk", [False, True])
+def test_match_store_reads_matches_without_scores(tmp_path, args, on_disk):
+    """``with_scores=False`` (two-view verification's read) gives the same
+    matches, forward and reversed, and no scores."""
+    m = np.array([3, -1, 0, 2], np.int32)
+    s = np.array([0.9, 0.0, 0.8, 0.7], np.float32)
+    path = tmp_path / "m.h5" if on_disk else None
+    with MatchStore(path, "w") as store:
+        store.write("a/x.jpg", "b/y.jpg", m, s)
+    with MatchStore(path, "r") if on_disk else contextlib.nullcontext(store) as store:
+        got, none = store.read(*args, with_scores=False)
+        ref, _ = store.read(*args)
+    assert none is None and got.dtype == np.int64
+    np.testing.assert_array_equal(got, ref)
