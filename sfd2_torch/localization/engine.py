@@ -3,8 +3,8 @@
 Port of ``sfd2_tpu/localization/engine.py``. ``localize`` = per-cluster
 2D-3D matching, PnP-RANSAC, per-DB-image consensus gates, covisibility
 refinement and graded fallbacks (``it_loc/localize_cv2.py:652``), with
-``refine_covisibility`` = frame expansion, re-matching, radius gate and
-iterative re-selection + LM (``:236``).
+the refinement (``_refine``) = frame expansion, re-matching, radius gate
+and iterative re-selection + LM (``:236``).
 
 All candidate DB banks of a round are stacked [D, K, C] on the device
 (D bucketed, so 50 retrieved frames run as 64 banks, the padding banks
@@ -17,18 +17,17 @@ on the card they replay CUDA graphs captured once per padded shape
 stays on the host (``MapIndex``). Each device result is fetched with one
 transfer.
 
-Throughput paths:
-* ``localize_many`` runs ``localize`` on worker threads: one RLock guards
-  the host and device bank caches and the feature store, the graphs
-  serialise their replays, and the results are bit-identical to the
-  sequential loop;
-* ``localize_throughput`` runs every device stage once for all still
-  active queries: ``_batched_match`` (chunks of 128 flattened (query,
-  bank) pairs, every chunk dispatched before any is fetched),
-  ``_batched_pnp`` and ``_refine_pool`` (PnP-RANSAC and the refinement
-  with the queries on the leading axis, the JAX engine's vmapped
-  programs);
-* ``inject_db_features`` registers device-born DB banks.
+Two entries apply one set of rules (``_cluster_rounds``, ``_refine``)
+and differ only in how they batch the device work and seed RANSAC:
+``localize`` runs one query; ``localize_throughput`` runs every device
+stage once for all still active queries (``_batched_match``: chunks of
+128 flattened (query, bank) pairs, every chunk dispatched before any is
+fetched; ``_batched_pnp`` and ``_refine`` with the queries on the leading
+axis, the JAX engine's vmapped programs). ``localize_many`` runs
+``localize`` on worker threads: one lock guards the device bank cache
+and the feature store, the graphs serialise their replays, and the
+results are bit-identical to the sequential loop. ``inject_db_features``
+registers device-born DB banks.
 
 With a ``mesh`` the query's DB banks are split over its devices
 (``ops/sharded_match.py::query_vs_sharded_bank``), as the JAX engine's
@@ -41,7 +40,7 @@ import dataclasses
 import threading
 from collections import OrderedDict
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -98,7 +97,7 @@ class LocalizerConfig:
     num_hypotheses: int = 1024
     matcher: str = "nnm"  # nnm | nnml (label-aware, it_loc/matcher.py:239)
     pnp_pad_floor: int = 64  # floor of the padded correspondence count
-    db_cache_images: int = 1024  # LRU capacity of the host and device bank caches
+    db_cache_images: int = 1024  # LRU capacity of the device bank cache
 
 
 @dataclasses.dataclass
@@ -131,10 +130,36 @@ def _best_single(cfg: LocalizerConfig, inliers, q_ids, p3d_rows, per_db, cluster
     assign[q_ids[inl_idx]] = p3d_rows[inl_idx]
     best_single, best_db = -1, cluster[0]
     for iid, recs in per_db.items():
-        n = int(np.sum(assign[recs[:, 0]] == recs[:, 1])) if len(recs) else 0
+        n = int(np.sum(assign[recs[:, 0]] == recs[:, 1]))
         if n > best_single:
             best_single, best_db = n, iid
     return best_single, best_db
+
+
+class _Pose(NamedTuple):
+    db_id: int  # the DB image that seeds the covisibility refinement
+    qvec: np.ndarray
+    tvec: np.ndarray
+    num: int  # the PnP inlier count behind it
+    source: str  # accepted | best_fallback
+
+
+@dataclasses.dataclass
+class _Query:
+    """One query in flight, as both entries hold it."""
+
+    cam8: np.ndarray
+    kpq: np.ndarray  # [K, 2] on the host
+    dev: tuple  # (desc [K, C], valid [K], labels [K] or None) on the device
+    log: str = ""
+    best: Optional[_Pose] = None  # the best single-image consensus so far
+    pose: Optional[_Pose] = None  # accepted or fallen back to: to refine or report
+    kept_num: int = 0  # num_inliers reported for a pose the refinement keeps
+    result: Optional[QueryResult] = None
+
+    def finish(self, qvec, tvec, num: int, log: str = "") -> None:
+        self.log += log
+        self.result = QueryResult(qvec, tvec, num, self.log, source=self.pose.source)
 
 
 class LocalizationEngine:
@@ -149,80 +174,65 @@ class LocalizationEngine:
         self.features = feature_store
         self.cfg = config
         self.device = resolve_device(device)
-        self._db_cache: "OrderedDict[str, tuple]" = OrderedDict()
-        self._db_dev_cache: "OrderedDict[str, tuple]" = OrderedDict()
-        # Injected banks: outside the LRU caches, never evicted (the store
-        # does not hold their descriptors).
-        self._pinned: Dict[str, tuple] = {}
-        self._pinned_dev: Dict[str, tuple] = {}
+        self._bank_lru: "OrderedDict[str, tuple]" = OrderedDict()
+        # Injected banks: outside the LRU, never evicted (the store does not
+        # hold their descriptors).
+        self._pinned_banks: Dict[str, tuple] = {}
         self._dev_zero_entry = None
-        # The caches, the feature store (an ``io/h5file.py`` file indexes a
-        # group on its first lookup) and the padding entry are the state that
+        # The banks, the feature store (an ``io/h5file.py`` file indexes a
+        # group on its first lookup) and the padding bank are the state that
         # concurrent localize() calls share.
-        self._cache_lock = threading.RLock()
+        self._cache_lock = threading.Lock()
         self._matcher = batch_matcher(config.matcher)
         self._label_aware = config.matcher == "nnml"
+        self._refines = config.do_covisibility_opt and "clu" in config.opt_type
 
     # ------------------------------------------------------------------
-    def _db_feats(self, image_id: int):
-        """Padded (kp, desc, valid3d, p3d_rows, labels) of a DB image, LRU-cached
-        (desc is None for an injected bank)."""
-        name = self.map.images[image_id].name
-        with waited(self._cache_lock, "engine.cache_lock_wait"):
-            if name in self._pinned:
-                return self._pinned[name]
-            if name in self._db_cache:
-                self._db_cache.move_to_end(name)
-                return self._db_cache[name]
-            with span("engine.bank_read"):
-                kp, desc, _, valid, labels = self.features.read_padded(
-                    name, self.cfg.max_keypoints, with_labels=True)
-                valid3d, prow = self._valid3d(image_id, valid)
-            entry = (kp, desc, valid3d, prow, labels)
-            self._db_cache[name] = entry
-            if len(self._db_cache) > self.cfg.db_cache_images:
-                self._db_cache.popitem(last=False)
-            return entry
-
-    def _valid3d(self, image_id: int, valid):
-        """(valid3d [K], p3d_rows [K]): keypoints with a 3D point, and its row."""
+    def _p3d_rows(self, image_id: int) -> np.ndarray:
+        """The 3D-point row of each of a DB image's K padded keypoints (−1
+        for none), from the map."""
         k = self.cfg.max_keypoints
         prow_full = self.map.p3d_rows_per_image[self.map.image_row[image_id]]
         prow = np.full(k, -1, np.int64)
         n = min(len(prow_full), k)
         prow[:n] = prow_full[:n]
-        return np.asarray(valid, bool) & (prow >= 0), prow
+        return prow
 
-    def _dev_entry(self, desc: torch.Tensor, valid3d: np.ndarray, labels: np.ndarray):
-        """(desc [K,C] float32, valid3d [K], labels [K]) on the device;
-        the reference's ≤3-valid bail-out (it_loc/localize_cv2.py:530) is baked
-        into the mask."""
-        v = valid3d if valid3d.sum() > 3 else np.zeros_like(valid3d)
+    def _dev_entry(self, image_id: int, desc: torch.Tensor, valid, labels):
+        """(desc [K,C] float32, valid3d [K], labels [K] or None) on the
+        device, valid3d the valid keypoints with a 3D point; the reference's
+        ≤3-valid bail-out (it_loc/localize_cv2.py:530) is baked into it."""
+        v = np.asarray(valid, bool) & (self._p3d_rows(image_id) >= 0)
+        if v.sum() <= 3:
+            v = np.zeros_like(v)
         dev = self.device
         return (desc.to(dev, torch.float32), torch.from_numpy(v).to(dev),
                 torch.from_numpy(np.asarray(labels, np.int32)).to(dev)
                 if self._label_aware else None)
 
-    def _db_feats_dev(self, image_id: int):
-        """Device-resident (desc [K,C], valid3d [K], labels [K]) of a DB image,
-        uploaded once and LRU-cached (injected banks are pinned). Counts
-        ``engine.bank_lookups`` and ``engine.bank_misses``, also as the
-        ``lookups`` and ``misses`` tags of the span open around the call."""
+    def _bank(self, image_id: int):
+        """Device-resident (desc [K,C], valid3d [K], labels [K] or None) of a
+        DB image: pinned if injected, else LRU-cached, read from the store
+        and uploaded on a miss. Counts ``engine.bank_lookups`` and
+        ``engine.bank_misses``, also as the ``lookups`` and ``misses`` tags
+        of the span open around the call."""
         name = self.map.images[image_id].name
         count("engine.bank_lookups", tag="lookups")
         with waited(self._cache_lock, "engine.cache_lock_wait"):
-            if name in self._pinned_dev:
-                return self._pinned_dev[name]
-            if name in self._db_dev_cache:
-                self._db_dev_cache.move_to_end(name)
-                return self._db_dev_cache[name]
+            if name in self._pinned_banks:
+                return self._pinned_banks[name]
+            if name in self._bank_lru:
+                self._bank_lru.move_to_end(name)
+                return self._bank_lru[name]
             count("engine.bank_misses", tag="misses")
-            _, desc, valid3d, _, labels = self._db_feats(image_id)
+            with span("engine.bank_read"):
+                _, desc, _, valid, labels = self.features.read_padded(
+                    name, self.cfg.max_keypoints, with_labels=True)
             with span("engine.bank_upload"):
-                entry = self._dev_entry(torch.from_numpy(desc), valid3d, labels)
-            self._db_dev_cache[name] = entry
-            if len(self._db_dev_cache) > self.cfg.db_cache_images:
-                self._db_dev_cache.popitem(last=False)
+                entry = self._dev_entry(image_id, torch.from_numpy(desc), valid, labels)
+            self._bank_lru[name] = entry
+            if len(self._bank_lru) > self.cfg.db_cache_images:
+                self._bank_lru.popitem(last=False)
             return entry
 
     def _dev_zero(self, c: int):
@@ -240,33 +250,28 @@ class LocalizationEngine:
                            valid: np.ndarray, labels: Optional[np.ndarray] = None):
         """Register a DB image whose descriptors were born on the device
         (``desc_dev`` [K, C], K = ``max_keypoints``, any float dtype), so
-        extraction output never round-trips through the store; only the
-        host metadata (keypoints, 3D-point rows) is kept on the host.
+        extraction output never round-trips through the store. `kp` is
+        taken for the JAX engine's signature: the 2D-3D assembly reads the
+        DB image's 3D-point rows from the map, not its keypoints.
 
         Deliberate deviations from the JAX engine (``sfd2_tpu/localization/
         engine.py:326-356``): the ``labels`` given are kept (the 'nnml'
         matcher needs them, and refuses an injected bank without them);
-        the bank is pinned, outside both LRU caches, so it is never evicted
-        (the store does not hold its descriptors); and it is cast to float32,
+        the bank is pinned, outside the LRU, so it is never evicted (the
+        store does not hold its descriptors); and it is cast to float32,
         the dtype of every bank the engine holds, so banks stack into one
         matcher launch without promotion."""
         k = self.cfg.max_keypoints
         if desc_dev.ndim != 2 or desc_dev.shape[0] != k:
             raise ValueError(f"inject_db_features: desc_dev must be [{k}, C], "
                              f"got {tuple(desc_dev.shape)}")
-        if labels is None:
-            if self._label_aware:
-                raise ValueError("inject_db_features: the 'nnml' matcher needs the bank's labels")
-            labels = np.zeros(k, np.int32)
-        labels = np.asarray(labels, np.int32)
+        if labels is None and self._label_aware:
+            raise ValueError("inject_db_features: the 'nnml' matcher needs the bank's labels")
         name = self.map.images[image_id].name
-        valid3d, prow = self._valid3d(image_id, valid)
-        entry = self._dev_entry(desc_dev, valid3d, labels)
+        entry = self._dev_entry(image_id, desc_dev, valid, labels)
         with self._cache_lock:
-            self._pinned[name] = (np.asarray(kp, np.float32), None, valid3d, prow, labels)
-            self._pinned_dev[name] = entry
-            self._db_cache.pop(name, None)
-            self._db_dev_cache.pop(name, None)
+            self._pinned_banks[name] = entry
+            self._bank_lru.pop(name, None)
 
     def _match_query_to_dbs(self, q_desc, q_valid, db_ids: Sequence[int], q_labels=None):
         """One batched mutual-NN launch of the query against every candidate
@@ -278,69 +283,49 @@ class LocalizationEngine:
             d_pad = -(-d_pad // n_dev) * n_dev
         with span("engine.match", banks=d_pad, real_banks=len(db_ids), lookups=0, misses=0):
             c = q_desc.shape[1]
-            entries = [self._db_feats_dev(iid) for iid in db_ids]
+            entries = [self._bank(iid) for iid in db_ids]
             entries += [self._dev_zero(c)] * (d_pad - len(db_ids))
             bank = torch.stack([e[0] for e in entries])
             bval = torch.stack([e[1] for e in entries])
+            blab = torch.stack([e[2] for e in entries]) if self._label_aware else None
             if self.mesh is not None:
                 from sfd2_torch.ops.sharded_match import query_vs_sharded_bank
 
-                matches, _ = query_vs_sharded_bank(
-                    self.mesh, q_desc, bank, q_valid, bval,
-                    q_labels if self._label_aware else None,
-                    torch.stack([e[2] for e in entries]) if self._label_aware else None)
-                return matches[: len(db_ids)].cpu().numpy().astype(np.int64)
-            q = q_desc.to(bank.dtype)[None].expand(d_pad, *q_desc.shape)
-            qv = q_valid[None].expand(d_pad, q_valid.shape[0])
-            if self._label_aware:
-                ql = q_labels[None].expand(d_pad, q_labels.shape[0])
-                matches, _ = self._matcher(q, bank, qv, bval, ql,
-                                           torch.stack([e[2] for e in entries]))
+                matches, _ = query_vs_sharded_bank(self.mesh, q_desc, bank, q_valid, bval,
+                                                   q_labels if self._label_aware else None, blab)
             else:
-                matches, _ = self._matcher(q, bank, qv, bval)
+                q = q_desc.to(bank.dtype)[None].expand(d_pad, *q_desc.shape)
+                qv = q_valid[None].expand(d_pad, q_valid.shape[0])
+                labels = (q_labels[None].expand(d_pad, q_labels.shape[0]), blab) \
+                    if self._label_aware else ()
+                matches, _ = self._matcher(q, bank, qv, bval, *labels)
             return matches[: len(db_ids)].cpu().numpy().astype(np.int64)
 
     # ------------------------------------------------------------------
-    def _assemble_2d3d(self, kpq, matches, db_ids, obs_th: int, dedup: Dict[int, set],
+    def _assemble_2d3d(self, kpq, matches, db_ids, obs_th: int,
                        gate_pose: Optional[tuple] = None, cam8=None, radius: float = 0.0):
         """2D-3D correspondences with first-occurrence (qid, p3d) dedup in DB
         order, track-length filter and optional reprojection-radius gate
         (``match_cluster_2D:563`` + the refinement gate ``:341-350``)."""
         with span("engine.assemble"):
-            all_q, all_p = [], []
+            all_q, all_p = [np.zeros(0, np.int64)], [np.zeros(0, np.int64)]
             per_db: Dict[int, np.ndarray] = {}
             for di, iid in enumerate(db_ids):
-                _, _, _, prow, _ = self._db_feats(iid)
                 m = matches[di]
                 qidx = np.nonzero(m >= 0)[0]
-                rows = prow[m[qidx]]
+                rows = self._p3d_rows(iid)[m[qidx]]
                 ok = rows >= 0
                 qidx, rows = qidx[ok], rows[ok]
                 ok = self.map.track_len[rows] >= obs_th
                 qidx, rows = qidx[ok], rows[ok]
-                per_db[iid] = np.stack([qidx, rows], 1) if len(qidx) else np.zeros((0, 2), np.int64)
+                per_db[iid] = np.stack([qidx, rows], 1)
                 all_q.append(qidx)
                 all_p.append(rows)
-
-            if not all_q or sum(len(a) for a in all_q) == 0:
-                return (np.zeros((0, 3)), np.zeros((0, 2)), np.zeros(0, np.int64),
-                        np.zeros(0, np.int64), per_db)
             q_cat = np.concatenate(all_q).astype(np.int64)
             p_cat = np.concatenate(all_p).astype(np.int64)
             keys = q_cat * (self.map.incidence.shape[1] + 1) + p_cat
-            if dedup:
-                prior = np.array([pr in dedup.get(int(qi), ()) for qi, pr in zip(q_cat, p_cat)])
-            else:
-                prior = np.zeros(len(q_cat), bool)
-            _, first_idx = np.unique(keys, return_index=True)
-            keep = np.zeros(len(keys), bool)
-            keep[first_idx] = True
-            keep &= ~prior
-            q_ids = q_cat[keep]
-            p3d_rows = p_cat[keep]
-            for qi, pr in zip(q_ids, p3d_rows):
-                dedup.setdefault(int(qi), set()).add(int(pr))
-
+            first = np.sort(np.unique(keys, return_index=True)[1])  # first occurrences, in order
+            q_ids, p3d_rows = q_cat[first], p_cat[first]
             mp3d = self.map.point_xyz[p3d_rows]
             mkpq = kpq[q_ids].astype(np.float64)
             if gate_pose is not None and radius > 0 and len(mp3d):
@@ -355,30 +340,32 @@ class LocalizationEngine:
         """Power-of-2 pad size with the configured floor."""
         return max(self.cfg.pnp_pad_floor, 1 << (max(n, 1) - 1).bit_length())
 
+    def _padded(self, items: Sequence[tuple], qp: int, n_pad: int) -> List[torch.Tensor]:
+        """Device (kp [qp, n_pad, 2], p3 [qp, n_pad, 3], mask [qp, n_pad],
+        cams [qp, 8]) of items [(mkpq, mp3d, mask, cam8)]: padding rows
+        masked out, padding queries on a benign fx = fy = 1 camera."""
+        kp = np.zeros((qp, n_pad, 2), np.float32)
+        p3 = np.zeros((qp, n_pad, 3), np.float32)
+        ms = np.zeros((qp, n_pad), bool)
+        cams = np.zeros((qp, 8), np.float32)
+        cams[:, :2] = 1.0
+        for i, (mkpq, mp3d, mask, cam8) in enumerate(items):
+            n = len(mkpq)
+            kp[i, :n], p3[i, :n], ms[i, :n] = mkpq, mp3d, mask
+            cams[i] = np.asarray(cam8, np.float32).reshape(8)
+        return [torch.from_numpy(a).to(self.device) for a in (kp, p3, ms, cams)]
+
     def _pnp_batch(self, items: Sequence[tuple], thresh: float, seeds: Sequence[int],
                    n_pad: Optional[int] = None):
         """PnP-RANSAC of items [(mkpq, mp3d, cam8)] padded to len(seeds)
-        queries (padding queries all-invalid, on a benign fx = fy = 1
-        camera) and to one correspondence bucket (`n_pad`, by default the
+        queries and to one correspondence bucket (`n_pad`, by default the
         items' own); query i's hypotheses come from a generator seeded
         seeds[i]. Returns the packed device result [len(seeds), 9 + n_pad]."""
-        qp, dev = len(seeds), self.device
         n_pad = n_pad or self._pad_bucket(max(len(it[0]) for it in items))
-        kp = np.zeros((qp, n_pad, 2), np.float32)
-        p3 = np.zeros((qp, n_pad, 3), np.float32)
-        va = np.zeros((qp, n_pad), bool)
-        cams = np.zeros((qp, 8), np.float32)
-        cams[:, :2] = 1.0
-        for i, (mkpq, mp3d, cam8) in enumerate(items):
-            n = len(mkpq)
-            kp[i, :n], p3[i, :n], va[i, :n] = mkpq, mp3d, True
-            cams[i] = np.asarray(cam8, np.float32).reshape(8)
-        va_t = torch.from_numpy(va).to(dev)
-        gens = [torch.Generator(device=dev).manual_seed(s) for s in seeds]
-        idx = sample_minimal_sets(va_t, self.cfg.num_hypotheses, gens)
-        return graphs.run(pnp_ransac_program(
-            torch.from_numpy(kp).to(dev), torch.from_numpy(p3).to(dev),
-            torch.from_numpy(cams).to(dev), va_t, idx, float(thresh)))
+        kp, p3, va, cams = self._padded([(k, p, True, c) for k, p, c in items], len(seeds), n_pad)
+        gens = [torch.Generator(device=self.device).manual_seed(s) for s in seeds]
+        idx = sample_minimal_sets(va, self.cfg.num_hypotheses, gens)
+        return graphs.run(pnp_ransac_program(kp, p3, cams, va, idx, float(thresh)))
 
     @staticmethod
     def _unpack_pnp(row: np.ndarray, n: int):
@@ -394,40 +381,20 @@ class LocalizationEngine:
     def _refine_batch(self, items: Sequence[tuple], qp: int,
                       n_pad: Optional[int] = None) -> np.ndarray:
         """The iterative re-selection + LM of items [(qvec, tvec, mkpq, mp3d,
-        base mask, cam8)] padded to qp queries (identity poses, no rows, a
-        benign camera) and one correspondence bucket (`n_pad`, by default
-        the items' own), in one program; fetched once: [qp, 8 + iters] =
-        qvec, tvec, num, nums."""
+        base mask, cam8)] padded to qp queries (identity poses) and one
+        correspondence bucket (`n_pad`, by default the items' own), in one
+        program; fetched once: [qp, 8 + iters] = qvec, tvec, num, nums."""
         with span("engine.refine"):
-            dev = self.device
             n_pad = n_pad or self._pad_bucket(max(len(it[2]) for it in items))
             qv = np.zeros((qp, 4), np.float32)
             qv[:, 0] = 1.0
             tv = np.zeros((qp, 3), np.float32)
-            p3 = np.zeros((qp, n_pad, 3), np.float32)
-            kp = np.zeros((qp, n_pad, 2), np.float32)
-            ms = np.zeros((qp, n_pad), bool)
-            cams = np.zeros((qp, 8), np.float32)
-            cams[:, :2] = 1.0
-            for i, (q, t, mkpq, mp3d, inl, cam8) in enumerate(items):
-                n = len(mkpq)
+            for i, (q, t, *_) in enumerate(items):
                 qv[i], tv[i] = q, t
-                p3[i, :n], kp[i, :n], ms[i, :n] = mp3d, mkpq, inl
-                cams[i] = np.asarray(cam8, np.float32).reshape(8)
-            t32 = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+            kp, p3, ms, cams = self._padded([it[2:] for it in items], qp, n_pad)
             return graphs.run(refine_pose_iterative_program(
-                t32(qv), t32(tv), t32(p3), t32(kp), t32(cams), t32(ms), float(self.cfg.opt_thresh),
-                iters=self.cfg.iters)).cpu().numpy()
-
-    def _apply_refine(self, row: np.ndarray, qvec, tvec, num: int):
-        """(qvec, tvec, num, log) after one packed refinement row."""
-        log = ""
-        if int(row[7]) > 0:
-            qvec, tvec, num = row[:4].astype(np.float64), row[4:7].astype(np.float64), int(row[7])
-        for it, n_it in enumerate(row[8:8 + self.cfg.iters]):
-            if n_it >= 0:
-                log += f"iter {it+1}: {int(n_it)} inliers\n"
-        return qvec, tvec, num, log
+                torch.from_numpy(qv).to(self.device), torch.from_numpy(tv).to(self.device),
+                p3, kp, cams, ms, float(self.cfg.opt_thresh), iters=self.cfg.iters)).cpu().numpy()
 
     def warm_buckets(self) -> List[int]:
         """The correspondence buckets a single query's PnP-RANSAC and
@@ -454,115 +421,141 @@ class LocalizationEngine:
             self._refine_batch([(q, t, mkpq, mp3d, inl, cam8)], 1, n_pad)
 
     # ------------------------------------------------------------------
-    def refine_covisibility(self, qname: str, cam8: np.ndarray, q_feats,
-                            seed_image_id: int, qvec: np.ndarray,
-                            tvec: np.ndarray) -> Tuple[np.ndarray, np.ndarray, int, str]:
-        """``pose_refinement_covisibility``: expand frames, re-match, gate by
-        reprojection radius, PnP at opt_th, then iters× re-select + refine."""
-        with span("engine.refine_covis"):
-            cfg = self.cfg
-            db_ids = _covis_frames(self.map, cfg, seed_image_id, qvec, tvec)
-            kpq, q_desc, q_valid, q_labels = q_feats
-            matches = self._match_query_to_dbs(q_desc, q_valid, db_ids, q_labels)
-            mp3d, mkpq, _, _, _ = self._assemble_2d3d(
-                kpq, matches, db_ids, cfg.obs_thresh, dedup={},
-                gate_pose=(qvec, tvec), cam8=cam8, radius=cfg.radius)
-            log = f"covis refine: {len(db_ids)} frames, {len(mkpq)} matches\n"
-            if len(mkpq) < 6:
-                return qvec, tvec, 0, log + "too few matches, keep pose\n"
-
-            q_new, t_new, inliers_rsac, num, success = self._run_pnp(
-                mkpq, mp3d, cam8, cfg.opt_thresh, seed=1)
-            if not success:
-                return qvec, tvec, 0, log + "refinement RANSAC failed, keep pose\n"
-            qvec, tvec = q_new, t_new
-
-            if "ref" in cfg.opt_type and inliers_rsac.sum() >= 10:
-                row = self._refine_batch([(qvec, tvec, mkpq, mp3d, inliers_rsac, cam8)], 1)[0]
-                qvec, tvec, num, rlog = self._apply_refine(row, qvec, tvec, num)
-                log += rlog
-            return qvec, tvec, num, log
-
-    # ------------------------------------------------------------------
-    def _query_feats(self, qname: str):
-        """(kp [K,2] host, desc [K,C], valid [K], labels [K] or None on the
-        device) of a query, read once: every match round reuses them."""
+    def _query(self, qname: str, qinfo) -> _Query:
+        """A query's camera, keypoints [K,2] on the host and (desc [K,C],
+        valid [K], labels [K] or None) on the device, read once: every match
+        round reuses them."""
+        model, _, _, params = qinfo
+        cam8 = canonicalize_params(model, params)
         with span("engine.query_feats"):
             # The store indexes a group on its first lookup.
             with waited(self._cache_lock, "engine.cache_lock_wait"):
                 kpq, q_desc, _, q_valid, q_labels = self.features.read_padded(
                     qname, self.cfg.max_keypoints, with_labels=True)
             dev = self.device
-            return (kpq, torch.from_numpy(q_desc).to(dev), torch.from_numpy(q_valid).to(dev),
-                    torch.from_numpy(q_labels).to(dev) if self._label_aware else None)
+            return _Query(cam8, kpq, (
+                torch.from_numpy(q_desc).to(dev), torch.from_numpy(q_valid).to(dev),
+                torch.from_numpy(q_labels).to(dev) if self._label_aware else None))
+
+    def _cluster_rounds(self, queries: Sequence[_Query], clusters: Sequence[Sequence],
+                        match: Callable, pnp: Callable) -> None:
+        """Round ci takes each query's ci-th non-empty cluster until one is
+        accepted: `match(ci, work)` gives the matches [D, K] of work [(query,
+        ci, cluster)]; 2D-3D assembly; `pnp(ci, items)` of the items [(mkpq,
+        mp3d, cam8)] with 8 correspondences, in one call; the consensus
+        gates. A query left without a pose takes its best single-image pose
+        if it has 10 inliers, else the pose of its first candidate."""
+        cfg = self.cfg
+        for ci in range(max(map(len, clusters), default=0)):
+            work = [(q, ci, cl[ci]) for q, cl in zip(queries, clusters)
+                    if q.pose is None and ci < len(cl) and cl[ci]]
+            items, ctx = [], []
+            for (q, _, cluster), m in zip(work, match(ci, work) if work else ()):
+                mp3d, mkpq, p3d_rows, q_ids, per_db = self._assemble_2d3d(
+                    q.kpq, m[: len(cluster)], cluster, obs_th=3)
+                if len(mp3d) < 8:
+                    q.log += f"cluster {ci}: only {len(mp3d)} matches, skip\n"
+                    continue
+                items.append((mkpq, mp3d, q.cam8))
+                ctx.append((q, cluster, p3d_rows, q_ids, per_db))
+            for (q, cluster, p3d_rows, q_ids, per_db), (qv, tv, inliers, num, success) in zip(
+                    ctx, pnp(ci, items) if items else ()):
+                if not success:
+                    q.log += f"cluster {ci}: PnP failed\n"
+                    continue
+                best_single, best_db = _best_single(cfg, inliers, q_ids, p3d_rows, per_db, cluster)
+                if best_single >= 8 and num > (q.best.num if q.best else 0):
+                    q.best = _Pose(best_db, qv, tv, num, "best_fallback")
+                if num < cfg.inlier_thresh or best_single < 10:
+                    q.log += f"cluster {ci}: weak ({best_single}/{num} inliers)\n"
+                    continue
+                q.log += f"cluster {ci}: accepted ({best_single}/{num} inliers)\n"
+                q.pose = _Pose(best_db, qv, tv, num, "accepted")
+        for q, cl in zip(queries, clusters):
+            if q.pose is None and q.best is not None and q.best.num >= 10:
+                q.pose = q.best
+            elif q.pose is None:
+                top = self.map.images[cl[0][0]]
+                q.log += f"failed; using pose of {top.name}\n"
+                q.result = QueryResult(np.array(top.qvec), np.array(top.tvec), -1, q.log,
+                                       source="retrieval_fallback")
+
+    def _refine(self, pool: Sequence[_Query], match: Callable, pnp: Callable) -> None:
+        """``pose_refinement_covisibility`` of each query's pose, every stage
+        once for the pool: expand frames, `match` (query i against frames[i]:
+        [Q, D, K]), gate by reprojection radius, `pnp` of the items [(mkpq,
+        mp3d, cam8)] at opt_thresh, then iters× re-select + LM. Sets every
+        query's result."""
+        cfg = self.cfg
+        frames = [_covis_frames(self.map, cfg, q.pose.db_id, q.pose.qvec, q.pose.tvec)
+                  for q in pool]
+        items, ctx = [], []
+        for q, m, ids in zip(pool, match(frames), frames):
+            mp3d, mkpq, _, _, _ = self._assemble_2d3d(
+                q.kpq, m[: len(ids)], ids, cfg.obs_thresh,
+                gate_pose=(q.pose.qvec, q.pose.tvec), cam8=q.cam8, radius=cfg.radius)
+            q.log += f"covis refine: {len(ids)} frames, {len(mkpq)} matches\n"
+            if len(mkpq) < 6:
+                q.finish(q.pose.qvec, q.pose.tvec, q.kept_num, "too few matches, keep pose\n")
+                continue
+            items.append((mkpq, mp3d, q.cam8))
+            ctx.append(q)
+        if not items:
+            return
+        lm_items, lm_ctx = [], []
+        for q, (mkpq, mp3d, cam8), (qv, tv, inl, num, success) in zip(ctx, items, pnp(items)):
+            if not success:
+                q.finish(q.pose.qvec, q.pose.tvec, q.kept_num,
+                         "refinement RANSAC failed, keep pose\n")
+            elif "ref" in cfg.opt_type and inl.sum() >= 10:
+                lm_items.append((qv, tv, mkpq, mp3d, inl, cam8))
+                lm_ctx.append((q, num))
+            else:
+                q.finish(qv, tv, num)
+        if not lm_items:
+            return
+        out = self._refine_batch(lm_items, _bucket(len(lm_items)))
+        for row, (qv, tv, *_), (q, num) in zip(out, lm_items, lm_ctx):
+            if int(row[7]) > 0:  # qvec, tvec, num, then the inliers of each iteration
+                qv, tv, num = row[:4].astype(np.float64), row[4:7].astype(np.float64), int(row[7])
+            q.finish(qv, tv, num, "".join(f"iter {it + 1}: {int(n)} inliers\n"
+                                          for it, n in enumerate(row[8:8 + cfg.iters]) if n >= 0))
 
     def localize(self, qname: str, qinfo, clusters: Sequence[Sequence[int]]) -> QueryResult:
         """``pose_from_cluster_with_matcher`` over candidate clusters (each a
-        list of DB image ids, e.g. singletons for init_type='sng')."""
+        list of DB image ids, e.g. singletons for init_type='sng'). The first
+        cluster is matched alone (easy queries stop there); on the first miss
+        all remaining candidates are matched in one launch. Clusters are
+        numbered with the empty ones counted; cluster ci's PnP is seeded ci,
+        the refinement's 1."""
         with span("engine.localize"):
             cfg = self.cfg
-            model, _, _, params = qinfo
-            cam8 = canonicalize_params(model, params)
-            q_feats = self._query_feats(qname)
-            kpq = q_feats[0]
-            log = ""
-
-            # The first cluster is matched alone (easy queries stop there); on
-            # the first miss all remaining candidates are matched in one launch.
+            q = self._query(qname, qinfo)
+            desc, valid, labels = q.dev
             match_of: Dict[int, np.ndarray] = {}
 
-            def ensure_matched(ci: int):
-                cluster = clusters[ci]
-                if all(iid in match_of for iid in cluster):
-                    return
-                todo = sorted({iid for c in clusters[ci:] for iid in c if iid not in match_of}
-                              ) if ci > 0 else sorted(set(cluster))
-                m = self._match_query_to_dbs(q_feats[1], q_feats[2], todo, q_feats[3])
-                for i, iid in enumerate(todo):
-                    match_of[iid] = m[i]
+            def match(ci, work):
+                cluster = work[0][2]
+                if not all(iid in match_of for iid in cluster):
+                    todo = sorted({iid for c in clusters[ci:] for iid in c if iid not in match_of}
+                                  ) if ci > 0 else sorted(set(cluster))
+                    match_of.update(zip(todo, self._match_query_to_dbs(desc, valid, todo, labels)))
+                return [np.stack([match_of[iid] for iid in cluster])]
 
-            best = {"num_inliers": 0, "qvec": None, "tvec": None, "db_id": None}
-            for ci, cluster in enumerate(clusters):
-                if not cluster:
-                    continue
-                ensure_matched(ci)
-                matches = np.stack([match_of[iid] for iid in cluster])
-                mp3d, mkpq, p3d_rows, q_ids, per_db = self._assemble_2d3d(
-                    kpq, matches, cluster, obs_th=3, dedup={})
-                if len(mp3d) < 8:
-                    log += f"cluster {ci}: only {len(mp3d)} matches, skip\n"
-                    continue
-                qv, tv, inliers, num, success = self._run_pnp(
-                    mkpq, mp3d, cam8, cfg.ransac_thresh, seed=ci)
-                if not success:
-                    log += f"cluster {ci}: PnP failed\n"
-                    continue
-                best_single, best_db = _best_single(cfg, inliers, q_ids, p3d_rows, per_db, cluster)
-                if best_single >= 8 and num > best["num_inliers"]:
-                    best.update(num_inliers=num, qvec=qv, tvec=tv, db_id=best_db)
-                if num < cfg.inlier_thresh or best_single < 10:
-                    log += f"cluster {ci}: weak ({best_single}/{num} inliers)\n"
-                    continue
-
-                log += f"cluster {ci}: accepted ({best_single}/{num} inliers)\n"
-                if cfg.do_covisibility_opt and "clu" in cfg.opt_type:
-                    qv, tv, num, rlog = self.refine_covisibility(qname, cam8, q_feats, best_db,
-                                                                 qv, tv)
-                    log += rlog
-                return QueryResult(qv, tv, num, log, source="accepted")
-
-            if best["num_inliers"] >= 10:
-                qv, tv = best["qvec"], best["tvec"]
-                if cfg.do_covisibility_opt and "clu" in cfg.opt_type:
-                    qv, tv, _, rlog = self.refine_covisibility(
-                        qname, cam8, q_feats, best["db_id"], qv, tv)
-                    log += rlog
-                return QueryResult(qv, tv, 0, log, source="best_fallback")
-
-            top = self.map.images[clusters[0][0]]
-            log += f"failed; using pose of {top.name}\n"
-            return QueryResult(np.array(top.qvec), np.array(top.tvec), -1, log,
-                               source="retrieval_fallback")
+            self._cluster_rounds([q], [clusters], match, lambda ci, items: [
+                self._run_pnp(*items[0], cfg.ransac_thresh, seed=ci)])
+            if q.pose is None:
+                return q.result
+            if self._refines:
+                with span("engine.refine_covis"):
+                    self._refine([q], lambda frames: [self._match_query_to_dbs(
+                        desc, valid, frames[0], labels)],
+                        lambda items: [self._run_pnp(*items[0], cfg.opt_thresh, seed=1)])
+            else:
+                q.finish(q.pose.qvec, q.pose.tvec, q.pose.num)
+            if q.pose.source == "best_fallback":  # the JAX engine reports no count for it
+                q.result.num_inliers = 0
+            return q.result
 
     # ------------------------------------------------------------------
     def localize_many(self, queries: Sequence[Tuple[str, tuple, Sequence[Sequence[int]]]],
@@ -614,7 +607,7 @@ class LocalizationEngine:
         zero = self._dev_zero(c)
         entries = []
         for banks in banks_per_q:
-            entries += [self._db_feats_dev(i) for i in banks] + [zero] * (d - len(banks))
+            entries += [self._bank(i) for i in banks] + [zero] * (d - len(banks))
         entries += [zero] * (n_flat - len(entries))
         bank = torch.stack([e[0] for e in entries])
         bval = torch.stack([e[1] for e in entries])
@@ -644,125 +637,31 @@ class LocalizationEngine:
 
     def localize_throughput(self, jobs: Sequence[Tuple[str, tuple, Sequence[Sequence[int]]]]
                             ) -> List[QueryResult]:
-        """Batched-across-queries localization: the gates and fallbacks of
-        ``localize``, but every device stage (matching, PnP-RANSAC, the
-        refinement) runs once for all still active queries. Cluster rounds
-        go in lockstep: round ci matches every remaining query's ci-th
-        cluster, and queries accept or drop out on their own; the
-        covisibility refinement pool is matched and refined the same way.
-        Hypotheses are drawn per query from ``fold_seed`` generators, so
-        poses agree with ``localize``'s to RANSAC's noise, not bit for bit."""
+        """Batched-across-queries localization: the rules of ``localize``,
+        but every device stage (matching, PnP-RANSAC, the refinement) runs
+        once for all still active queries. Cluster rounds go in lockstep:
+        round ci matches every remaining query's ci-th non-empty cluster,
+        and queries accept or drop out on their own; the covisibility
+        refinement pool is matched and refined the same way. Query i's
+        hypotheses come from ``fold_seed(1000 + ci, i)`` and, in the
+        refinement, ``fold_seed(77, i)`` generators, so poses agree with
+        ``localize``'s to RANSAC's noise, not bit for bit. A pose the
+        refinement keeps, or that is not refined, reports the best PnP
+        count."""
         cfg = self.cfg
-        state = []
-        for qname, qinfo, clusters in jobs:
-            model, _, _, params = qinfo
-            kpq, *q_dev = self._query_feats(qname)
-            state.append({"qname": qname, "cam8": canonicalize_params(model, params),
-                          "kpq": kpq, "q_dev": tuple(q_dev),
-                          "clusters": [c for c in clusters if c], "log": "",
-                          "best": {"num_inliers": 0, "qvec": None, "tvec": None, "db_id": None},
-                          "result": None, "refine": None})
-
-        for ci in range(max((len(s["clusters"]) for s in state), default=0)):
-            active = [s for s in state if s["result"] is None and s["refine"] is None
-                      and ci < len(s["clusters"])]
-            if not active:
-                break
-            matches = self._batched_match([s["q_dev"] for s in active],
-                                          [s["clusters"][ci] for s in active])
-            pnp_items, pnp_ctx = [], []
-            for s, m in zip(active, matches):
-                cluster = s["clusters"][ci]
-                mp3d, mkpq, p3d_rows, q_ids, per_db = self._assemble_2d3d(
-                    s["kpq"], m[: len(cluster)], cluster, obs_th=3, dedup={})
-                if len(mp3d) < 8:
-                    s["log"] += f"cluster {ci}: only {len(mp3d)} matches, skip\n"
-                    continue
-                pnp_items.append((mkpq, mp3d, s["cam8"]))
-                pnp_ctx.append((s, per_db, p3d_rows, q_ids, cluster))
-            if not pnp_items:
-                continue
-            results = self._batched_pnp(pnp_items, cfg.ransac_thresh, seed_base=1000 + ci)
-            for (s, per_db, p3d_rows, q_ids, cluster), (qv, tv, inliers, num, success) in zip(
-                    pnp_ctx, results):
-                if not success:
-                    s["log"] += f"cluster {ci}: PnP failed\n"
-                    continue
-                best_single, best_db = _best_single(cfg, inliers, q_ids, p3d_rows, per_db,
-                                                    cluster)
-                b = s["best"]
-                if best_single >= 8 and num > b["num_inliers"]:
-                    b.update(num_inliers=num, qvec=qv, tvec=tv, db_id=best_db)
-                if num < cfg.inlier_thresh or best_single < 10:
-                    s["log"] += f"cluster {ci}: weak ({best_single}/{num} inliers)\n"
-                    continue
-                s["log"] += f"cluster {ci}: accepted ({best_single}/{num} inliers)\n"
-                s["refine"] = (best_db, qv, tv, "accepted")
-
-        # Exhausted queries: the best single-image fallback joins the refine
-        # pool; the rest take the retrieval fallback.
-        for s in state:
-            if s["result"] is not None or s["refine"] is not None:
-                continue
-            b = s["best"]
-            if b["num_inliers"] >= 10:
-                s["refine"] = (b["db_id"], b["qvec"], b["tvec"], "best_fallback")
-            else:
-                top = self.map.images[s["clusters"][0][0]]
-                s["log"] += f"failed; using pose of {top.name}\n"
-                s["result"] = QueryResult(np.array(top.qvec), np.array(top.tvec), -1, s["log"],
-                                          source="retrieval_fallback")
-
-        pool = [s for s in state if s["refine"] is not None]
-        if cfg.do_covisibility_opt and "clu" in cfg.opt_type and pool:
-            self._refine_pool(pool)
-        for s in pool:
-            if s["result"] is None:  # refinement opted out / kept the pose
-                _, qv, tv, src = s["refine"]
-                s["result"] = QueryResult(qv, tv, s["best"]["num_inliers"], s["log"], source=src)
-        return [s["result"] for s in state]
-
-    def _refine_pool(self, pool: List[dict]) -> None:
-        """``pose_refinement_covisibility`` for a pool of accepted queries,
-        each stage once for the pool (matcher → PnP → iterative LM)."""
-        cfg = self.cfg
-        banks = [list(_covis_frames(self.map, cfg, s["refine"][0], s["refine"][1],
-                                    s["refine"][2])) for s in pool]
-        matches = self._batched_match([s["q_dev"] for s in pool], banks)
-
-        pnp_items, ctx = [], []
-        for s, m, ids in zip(pool, matches, banks):
-            _, qv, tv, src = s["refine"]
-            mp3d, mkpq, _, _, _ = self._assemble_2d3d(
-                s["kpq"], m[: len(ids)], ids, cfg.obs_thresh, dedup={},
-                gate_pose=(qv, tv), cam8=s["cam8"], radius=cfg.radius)
-            s["log"] += f"covis refine: {len(ids)} frames, {len(mkpq)} matches\n"
-            if len(mkpq) < 6:
-                s["result"] = QueryResult(qv, tv, s["best"]["num_inliers"],
-                                          s["log"] + "too few matches, keep pose\n", source=src)
-                continue
-            pnp_items.append((mkpq, mp3d, s["cam8"]))
-            ctx.append((s, mkpq, mp3d, src))
-        if not pnp_items:
-            return
-        results = self._batched_pnp(pnp_items, cfg.opt_thresh, seed_base=77)
-
-        lm_items, lm_ctx = [], []
-        for (s, mkpq, mp3d, src), (qv, tv, inl, num, success) in zip(ctx, results):
-            _, qv0, tv0, _ = s["refine"]
-            if not success:
-                s["result"] = QueryResult(qv0, tv0, s["best"]["num_inliers"],
-                                          s["log"] + "refinement RANSAC failed, keep pose\n",
-                                          source=src)
-                continue
-            if "ref" in cfg.opt_type and inl.sum() >= 10:
-                lm_items.append((qv, tv, mkpq, mp3d, inl, s["cam8"]))
-                lm_ctx.append((s, num, src))
-            else:
-                s["result"] = QueryResult(qv, tv, num, s["log"], source=src)
-        if not lm_items:
-            return
-        out = self._refine_batch(lm_items, _bucket(len(lm_items)))
-        for row, (qv, tv, *_), (s, num, src) in zip(out, lm_items, lm_ctx):
-            qv, tv, num, rlog = self._apply_refine(row, qv, tv, num)
-            s["result"] = QueryResult(qv, tv, num, s["log"] + rlog, source=src)
+        queries = [self._query(qname, qinfo) for qname, qinfo, _ in jobs]
+        self._cluster_rounds(
+            queries, [[c for c in cl if c] for _, _, cl in jobs],
+            lambda ci, work: self._batched_match([q.dev for q, _, _ in work],
+                                                 [c for _, _, c in work]),
+            lambda ci, items: self._batched_pnp(items, cfg.ransac_thresh, seed_base=1000 + ci))
+        pool = [q for q in queries if q.result is None]
+        for q in pool:
+            q.kept_num = q.best.num
+        if self._refines and pool:
+            self._refine(pool, lambda frames: self._batched_match([q.dev for q in pool], frames),
+                         lambda items: self._batched_pnp(items, cfg.opt_thresh, seed_base=77))
+        else:
+            for q in pool:
+                q.finish(q.pose.qvec, q.pose.tvec, q.kept_num)
+        return [q.result for q in queries]

@@ -230,6 +230,86 @@ def test_localize_throughput_matches_jax_engine(served_scene, tmp_path):
         assert qe < 0.5 and te < 0.1
 
 
+_LM = "covis refine: 6 frames, 350 matches\niter 1: 350 inliers\niter 2: 350 inliers\n"
+_ACCEPTED = ("cluster 0: accepted (335/335 inliers)\n", "cluster 0: accepted (350/350 inliers)\n")
+_WEAK = ("cluster 0: weak (335/335 inliers)\ncluster 1: weak (350/350 inliers)\n"
+         "cluster 2: weak (331/331 inliers)\n",
+         "cluster 0: weak (350/350 inliers)\ncluster 1: weak (350/350 inliers)\n"
+         "cluster 2: weak (303/303 inliers)\n")
+_TOP = ("failed; using pose of db/00007.jpg\n", "failed; using pose of db/00016.jpg\n")
+_SKIPPED = "".join(f"cluster {c}: only 0 matches, skip\n" for c in range(3))
+_PNP_FAILED = "".join(f"cluster {c}: PnP failed\n" for c in range(3))
+_KEEP_FEW = "covis refine: 6 frames, 0 matches\ntoo few matches, keep pose\n"
+_KEEP_FAILED = "covis refine: 6 frames, 350 matches\nrefinement RANSAC failed, keep pose\n"
+
+# case: (config knobs, {entry: (source, num_inliers, log) of the first two
+# queries}). localize numbers clusters with the empty ones counted, and
+# reports 0 inliers for a kept or fallback pose where localize_throughput
+# reports the best PnP count.
+BRANCHES = {
+    "weak_then_accepted": ({"inlier_thresh": 343}, {
+        "localize": [("accepted", 350, "cluster 0: weak (335/335 inliers)\n"
+                      "cluster 2: accepted (350/350 inliers)\n" + _LM),
+                     ("accepted", 350, _ACCEPTED[1] + _LM)],
+        "localize_throughput": [("accepted", 350, "cluster 0: weak (335/335 inliers)\n"
+                                 "cluster 1: accepted (350/350 inliers)\n" + _LM),
+                                ("accepted", 350, _ACCEPTED[1] + _LM)]}),
+    "best_fallback": ({"inlier_thresh": 10**6}, {
+        "localize": [("best_fallback", 0, w + _LM) for w in _WEAK],
+        "localize_throughput": [("best_fallback", 350, w + _LM) for w in _WEAK]}),
+    "best_fallback_unrefined": ({"inlier_thresh": 10**6, "do_covisibility_opt": False}, {
+        "localize": [("best_fallback", 0, w) for w in _WEAK],
+        "localize_throughput": [("best_fallback", 350, w) for w in _WEAK]}),
+    "no_matches": ({}, {
+        e: [("retrieval_fallback", -1, _SKIPPED + t) for t in _TOP]
+        for e in ("localize", "localize_throughput")}),
+    "pnp_failed": ({"ransac_thresh": 1e-3}, {
+        e: [("retrieval_fallback", -1, _PNP_FAILED + t) for t in _TOP]
+        for e in ("localize", "localize_throughput")}),
+    "refine_too_few": ({"radius": 1e-6}, {
+        "localize": [("accepted", 0, a + _KEEP_FEW) for a in _ACCEPTED],
+        "localize_throughput": [("accepted", n, a + _KEEP_FEW)
+                                for n, a in zip((335, 350), _ACCEPTED)]}),
+    "refine_ransac_failed": ({"opt_thresh": 1e-3}, {
+        "localize": [("accepted", 0, a + _KEEP_FAILED) for a in _ACCEPTED],
+        "localize_throughput": [("accepted", n, a + _KEEP_FAILED)
+                                for n, a in zip((335, 350), _ACCEPTED)]}),
+    "no_lm": ({"opt_type": "cluobs"}, {
+        e: [("accepted", 350, a + "covis refine: 6 frames, 350 matches\n") for a in _ACCEPTED]
+        for e in ("localize", "localize_throughput")}),
+    "unrefined": ({"opt_type": "refobs"}, {
+        e: [("accepted", n, a) for n, a in zip((335, 350), _ACCEPTED)]
+        for e in ("localize", "localize_throughput")}),
+}
+
+
+@pytest.mark.parametrize("entry", ["localize", "localize_throughput"])
+@pytest.mark.parametrize("case", list(BRANCHES))
+def test_localizer_branches(served_scene, case, entry):
+    """Every gate, fallback and log line of the localizer, pinned for both
+    entries on the first two queries' three best frames as singletons: a
+    weak cluster (an empty one after it), only weak clusters, no usable
+    matches (all-invalid injected banks), PnP failing everywhere, the
+    refinement's two keep-pose exits, no LM and no refinement."""
+    scene, store, _, _, _ = served_scene
+    knobs, want = BRANCHES[case]
+    eng = LocalizationEngine(scene.map_index, store, LocalizerConfig(**dict(CFG, **knobs)),
+                             device="cpu")
+    jobs = []
+    for qname, _, _, near in scene.queries[:2]:
+        clusters = [[int(i)] for i in near[:3]]
+        if case == "weak_then_accepted":
+            clusters.insert(1, [])
+        if case == "no_matches":
+            for iid in near[:3]:
+                kp, desc, _, _ = store.read_padded(scene.map_index.images[iid].name, 512)
+                eng.inject_db_features(iid, kp, torch.from_numpy(desc), np.zeros(512, bool))
+        jobs.append((qname, scene.qinfo, clusters))
+    got = ([eng.localize(*j) for j in jobs] if entry == "localize"
+           else eng.localize_throughput(jobs))
+    assert [(r.source, r.num_inliers, r.log) for r in got] == want[entry]
+
+
 def test_batched_match_chunking_matches_direct(served_scene):
     """Beyond 128 (query, bank) pairs the flattened axis is chunked; every
     query's rows equal the per-query matcher's."""
@@ -237,7 +317,7 @@ def test_batched_match_chunking_matches_direct(served_scene):
     eng = service.engine
     ids = [int(i) for i in list(scene.map_index.images)[:10]]
     banks = [ids * 3 for _ in range(5)]  # 5 queries × 30 banks = 150 > 128
-    q_feats = [eng._query_feats(scene.queries[i % 3][0])[1:] for i in range(5)]
+    q_feats = [eng._query(scene.queries[i % 3][0], scene.qinfo).dev for i in range(5)]
     with profiling.recording() as recs:
         got = eng._batched_match(q_feats, banks)
     fetched = [r.tags["mb"] for r in recs if r.name == "engine.batched_match.fetch"]
@@ -268,9 +348,10 @@ def test_inject_db_features_matches_store_path_and_survives_a_small_lru(served_s
         got = eng.localize(*job)
         np.testing.assert_array_equal(got.qvec, ref.qvec)
         assert (got.num_inliers, got.source) == (ref.num_inliers, ref.source)
-    assert not eng._db_dev_cache and not eng._db_cache  # pinned, outside the LRU
+    assert not eng._bank_lru and len(eng._pinned_banks) == 20  # pinned, outside the LRU
     iid = int(scene.map_index.image_ids[0])
-    assert eng._db_feats(iid)[1] is None and eng._db_feats_dev(iid)[0].shape == (512, 64)
+    assert eng._bank(iid) is eng._pinned_banks[scene.map_index.images[iid].name]
+    assert eng._bank(iid)[0].shape == (512, 64) and not eng._bank_lru
     _, kq, _, vq, _ = store.read_padded(scene.queries[0][0], 512, with_labels=True)
     near = scene.queries[0][3]
     np.testing.assert_array_equal(
@@ -287,7 +368,8 @@ def test_inject_db_features_casts_to_one_bank_dtype(served_scene):
     for iid in near[::2]:  # every other retrieved bank injected as bf16
         kp, desc, _, valid = store.read_padded(scene.map_index.images[iid].name, 512)
         eng.inject_db_features(iid, kp, torch.from_numpy(desc).to(torch.bfloat16), valid)
-    assert {eng._db_feats_dev(i)[0].dtype for i in near} == {torch.float32}
+    assert {eng._bank(i)[0].dtype for i in near} == {torch.float32}
+    assert len(eng._pinned_banks) == len(near[::2]) and len(eng._bank_lru) == len(near[1::2])
     assert eng._dev_zero(64)[0].dtype == torch.float32
     res = eng.localize(*_jobs(scene)[0])
     ref = service.engine.localize(*_jobs(scene)[0])
@@ -310,9 +392,10 @@ def test_inject_db_features_keeps_labels_under_nnml(served_scene):
     iid = int(scene.map_index.image_ids[3])
     _, _, _, _, want = labelled.read_padded(scene.map_index.images[iid].name, 512,
                                             with_labels=True)
-    np.testing.assert_array_equal(eng._db_feats(iid)[4], want)
-    np.testing.assert_array_equal(eng._db_feats_dev(iid)[2].numpy(), want)
-    kq, dq, vq, lq = ref._query_feats(scene.queries[0][0])
+    np.testing.assert_array_equal(eng._pinned_banks[scene.map_index.images[iid].name][2].numpy(),
+                                  want)
+    np.testing.assert_array_equal(eng._bank(iid)[2].numpy(), want)
+    dq, vq, lq = ref._query(scene.queries[0][0], scene.qinfo).dev
     near = scene.queries[0][3]
     m_ref = ref._match_query_to_dbs(dq, vq, near, lq)
     np.testing.assert_array_equal(eng._match_query_to_dbs(dq, vq, near, lq), m_ref)
