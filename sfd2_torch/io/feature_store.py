@@ -30,6 +30,13 @@ class ImageFeatures(NamedTuple):
     labels: np.ndarray | None = None  # [N] int32 semantic ids (0 = none)
 
 
+class StoredDescriptors(NamedTuple):
+    descriptors: np.ndarray  # as stored: [C, N] if channels_first else [N, C], stored dtype
+    channels_first: bool
+    num: int  # N, the image's keypoints
+    labels: np.ndarray | None = None  # [N] int32, if asked for and stored
+
+
 def names_to_pair(name0: str, name1: str) -> str:
     """hloc pair-group key (``hloc/utils/parsers.py:66``)."""
     return "_".join((name0.replace("/", "-"), name1.replace("/", "-")))
@@ -121,6 +128,22 @@ class FeatureStore:
         size = grp["image_size"][()] if "image_size" in grp else None
         labels = np.asarray(grp["labels"][()], np.int32) if "labels" in grp else None
         return ImageFeatures(kpts[:, :2], desc, scores, size, labels)
+
+    def read_stored(self, name: str, with_labels: bool = False) -> StoredDescriptors:
+        """The descriptors as the store holds them, for a caller that lays
+        them out itself: no transpose, no cast (float16 from `as_half`
+        stays float16), and no copy from a dict store. `channels_first` is
+        ``read``'s [C, N] / [N, C] decision; only the keypoints' shape is
+        read besides, and the labels if `with_labels`."""
+        grp = self._groups[name] if self._f is None else self._f[name]
+        n = int(grp["keypoints"].shape[0])
+        desc = np.asarray(grp["descriptors"][()])
+        if not desc.dtype.isnative:
+            desc = desc.astype(desc.dtype.newbyteorder("="))
+        channels_first = desc.shape[0] != n and desc.shape[1] == n
+        labels = (np.asarray(grp["labels"][()], np.int32)
+                  if with_labels and "labels" in grp else None)
+        return StoredDescriptors(desc, channels_first, n, labels)
 
     def read_padded(self, name: str, k: int, with_labels: bool = False):
         """(keypoints [k,2], descriptors [k,C], scores [k], valid [k]) — plus

@@ -8,6 +8,10 @@ and scores within 1e-6 (both compute the same float32 products and pick
 from them), and against the XLA path on tie-free inputs. ``match_pairs``
 is held against the JAX ``match_pairs`` on the 6-camera scene of
 ``tests/test_map_building.py``: identical ``matches0`` for NNM and NNR.
+Its banks, staged on the device from the store's own [C, N] layout, give
+stores byte-identical to those of banks padded on the host by
+``read_padded`` (dict and HDF5 stores, float16 ones, images cut at K and
+shorter than K, labels, a small device cache, a mesh).
 """
 
 import contextlib
@@ -20,8 +24,13 @@ import torch
 from scipy.spatial.transform import Rotation
 
 from sfd2_torch.io.feature_store import FeatureStore, ImageFeatures, MatchStore, names_to_pair
-from sfd2_torch.ops.matching import mutual_nn_ratio_match
+from sfd2_torch.ops.matching import batch_matcher, mutual_nn_ratio_match
+from sfd2_torch.ops import sharded_match
+from sfd2_torch.ops.sharded_match import make_sharded_pair_matcher
+from sfd2_torch.parallel import make_mesh
+from sfd2_torch.pipeline import match as match_module
 from sfd2_torch.pipeline.match import MATCHER_CONFS, MatchConfig, match_pairs
+from sfd2_torch.utils.profiling import counter
 from sfd2_tpu.geometry.cameras import canonicalize_params
 from sfd2_tpu.io import feature_store as jfs
 from sfd2_tpu.localization.engine import _np_project
@@ -174,8 +183,6 @@ def test_match_pairs_rejects_a_mesh(stores):
     """Anything but a ``parallel.mesh.Mesh`` is refused; over a mesh of
     three CPU entries (batches of 4 padded to 6) the store is the plain
     one."""
-    from sfd2_torch.parallel import make_mesh
-
     _, port, pairs = stores
     with pytest.raises(TypeError, match="mesh"):
         match_pairs(port, pairs, MatchStore(), mesh=object(), device="cpu")
@@ -221,3 +228,153 @@ def test_match_store_reads_matches_without_scores(tmp_path, args, on_disk):
         ref, _ = store.read(*args)
     assert none is None and got.dtype == np.int64
     np.testing.assert_array_equal(got, ref)
+
+
+# --- banks staged on the device from the store's own layout ---------------
+
+
+@pytest.mark.parametrize("dtype", ["<f4", "<f2", ">f4"])
+@pytest.mark.parametrize("layout", ["cn", "nc", "square"])
+def test_read_stored_keeps_the_stored_array(rng, layout, dtype):
+    """``read_stored`` hands back the stored array itself (dtype kept, no
+    copy; a big-endian array, which ``h5file`` reads, in native order) and
+    ``read``'s [C, N] / [N, C] decision: hloc's [C, N]; [N, C] as another
+    writer may leave it; and C == N, which ``read`` takes as [N, C]."""
+    n, c = {"cn": (40, 16), "nc": (40, 16), "square": (24, 24)}[layout]
+    desc = unit(rng, n, c)
+    stored = np.ascontiguousarray(desc if layout == "nc" else desc.T).astype(dtype)
+    labels = rng.integers(0, 5, n).astype(np.int32)
+    fs = FeatureStore()
+    fs._groups["a.jpg"] = {"keypoints": rng.random((n, 2)).astype(np.float32),
+                           "descriptors": stored, "scores": np.ones(n, np.float32),
+                           "labels": labels}
+    got = fs.read_stored("a.jpg", with_labels=True)
+    assert got.descriptors.dtype == stored.dtype.newbyteorder("=") and got.num == n
+    assert np.shares_memory(got.descriptors, stored) == stored.dtype.isnative
+    assert got.channels_first == (layout == "cn")
+    laid = got.descriptors.T if got.channels_first else got.descriptors
+    np.testing.assert_array_equal(laid.astype(np.float32), fs.read("a.jpg").descriptors)
+    np.testing.assert_array_equal(got.labels, labels)
+    assert fs.read_stored("a.jpg").labels is None
+
+
+def _recorded(make, launches):
+    """`make` (a matcher factory) whose matchers append their arguments to
+    `launches` before they run."""
+
+    def build(*a, **kw):
+        fn = make(*a, **kw)
+
+        def run(*args):
+            launches.append([t.cpu().clone() for t in args])
+            return fn(*args)
+
+        return run
+
+    return build
+
+
+def _read_padded_store(features, pairs, cfg, mesh=None, launches=None):
+    """The store ``match_pairs`` wrote with banks padded on the host: each
+    image through ``read_padded``, the batch stacked from the host arrays,
+    the same batches and matcher. `pairs` holds no repeat and no reverse."""
+    conf = MATCHER_CONFS[cfg.matcher]
+    if mesh is None:
+        fn, n_dev = _recorded(batch_matcher, launches)(conf["mode"], conf.get("ratio", 0.9)), 1
+    else:
+        fn = _recorded(make_sharded_pair_matcher, launches)(mesh, conf["mode"],
+                                                            conf.get("ratio", 0.9))
+        n_dev = mesh.shape["data"]
+    fields = (1, 3, 4) if conf["mode"] == "nnml" else (1, 3)  # desc, valid, labels
+    store = MatchStore()
+    for i in range(0, len(pairs), cfg.batch_size):
+        chunk = pairs[i: i + cfg.batch_size]
+        pad = -(-len(chunk) // n_dev) * n_dev - len(chunk)
+        sides = []
+        for side in zip(*chunk):
+            rows = [features.read_padded(n, cfg.max_keypoints, with_labels=True) for n in side]
+            sides.append(rows + [tuple(np.zeros_like(a) for a in rows[0])] * pad)
+        m, s = fn(*[torch.stack([torch.from_numpy(r[j]) for r in rows])
+                    for j in fields for rows in sides])
+        m, s = m.cpu().numpy(), s.cpu().numpy()
+        for bi, (n0, n1) in enumerate(chunk):
+            n = int(sides[0][bi][3].sum())
+            store.write(n0, n1, m[bi, :n].astype(np.int32), s[bi, :n])
+    return store
+
+
+STAGED = {
+    "dict": {},
+    "h5": dict(on_disk=True),
+    "half": dict(as_half=True),
+    "h5_half": dict(on_disk=True, as_half=True),
+    "cut_at_k": dict(cut=True),
+    "nnml_labels": dict(matcher="NNML"),
+    "nnml_h5_half_cut": dict(matcher="NNML", on_disk=True, as_half=True, cut=True),
+    "nnr": dict(matcher="NNR"),
+    "small_cache": dict(cache=3),
+    "mesh": dict(mesh=3),
+}
+
+
+@pytest.mark.parametrize("case", list(STAGED))
+def test_staged_banks_write_the_read_padded_store(tmp_path, monkeypatch, case):
+    """Banks staged on the device from ``read_stored`` give the matcher
+    bit for bit the launches (descriptors, zero padding, masks, labels)
+    and the store that banks from ``read_padded`` give, and ``match_pairs``
+    no longer reads a padded or transposed copy on the host. With every
+    bank in the device cache each distinct image is staged once."""
+    opt = STAGED[case]
+    rng = np.random.default_rng(5)
+    feats = scene_features(seed=13, n_pts=260, n_cams=7)
+    names = sorted(feats)
+    ns = sorted(len(feats[n][0]) for n in names)
+    k = ns[len(ns) // 2] if opt.get("cut") else 512
+    if opt.get("cut"):
+        assert ns[0] < k < ns[-1]
+    path = tmp_path / "f.h5" if opt.get("on_disk") else None
+    with FeatureStore(path, "w") as fs:
+        for name in names:
+            kp, de, sc = feats[name]
+            lb = rng.integers(0, 4, len(kp)).astype(np.int32)
+            fs.write(name, ImageFeatures(kp, de, sc, None, lb), as_half=opt.get("as_half", False))
+    fs = FeatureStore(path, "r") if path is not None else fs
+    pairs = [(a, b) for ai, a in enumerate(names) for b in names[ai + 1:]]
+    cfg = MatchConfig(matcher=opt.get("matcher", "NNM"), max_keypoints=k, batch_size=4)
+    mesh = make_mesh(devices=["cpu"] * opt["mesh"]) if "mesh" in opt else None
+    ref_launches, launches = [], []
+    with fs:
+        ref = _read_padded_store(fs, pairs, cfg, mesh, ref_launches)
+
+        def refuse(*args, **kwargs):
+            raise AssertionError("match_pairs read a host copy of the descriptors")
+
+        monkeypatch.setattr(FeatureStore, "read_padded", refuse)
+        monkeypatch.setattr(FeatureStore, "read", refuse)
+        monkeypatch.setattr(match_module, "batch_matcher",
+                            _recorded(match_module.batch_matcher, launches))
+        monkeypatch.setattr(sharded_match, "make_sharded_pair_matcher",
+                            _recorded(sharded_match.make_sharded_pair_matcher, launches))
+        if "cache" in opt:
+            monkeypatch.setattr(match_module, "_DEV_CACHE_IMAGES", opt["cache"])
+        staged0, matched0 = counter("match.banks_staged"), counter("match.pairs_matched")
+        got = MatchStore()
+        assert match_pairs(fs, pairs, got, cfg, mesh=mesh, device="cpu") == len(pairs)
+    staged = counter("match.banks_staged") - staged0
+    assert counter("match.pairs_matched") - matched0 == len(pairs)
+    assert staged > len(names) if "cache" in opt else staged == len(names)
+    assert len(launches) == len(ref_launches) == -(-len(pairs) // cfg.batch_size)
+    for args, ref_args in zip(launches, ref_launches):
+        assert len(args) == len(ref_args)
+        for a, b in zip(args, ref_args):
+            assert a.dtype == b.dtype and a.shape == b.shape
+            assert a.numpy().tobytes() == b.numpy().tobytes()
+    n_matched = 0
+    for n0, n1 in pairs:
+        key = names_to_pair(n0, n1)
+        for field in ("matches0", "matching_scores0"):
+            a, b = got._groups[key][field], ref._groups[key][field]
+            assert a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes()
+        assert len(got._groups[key]["matches0"]) == min(len(feats[n0][0]), k)
+        n_matched += int((got._groups[key]["matches0"] >= 0).sum())
+    assert n_matched > 20 * len(pairs)
